@@ -1,0 +1,158 @@
+"""CUDA grouped-aggregation kernels for Hopper (``csrc/seg_agg.cu``).
+
+Two kernels, each replacing one Pallas TPU kernel of the JAX package
+(``repro/kernels/seg_agg/kernel.py``):
+
+* ``seg_agg_cuda`` (kernel A) <- ``_seg_agg_kernel``: values (N, M) f32,
+  group ids (N,) int32 and a row mask (N,) f32 -> (G, M) SUM/MIN/MAX, with
+  the select or the multiply mask contract;
+* ``seg_agg_fused_cuda`` (kernel B) <- ``_seg_agg_fused_kernel``: the row
+  mask is built inside the kernel from predicate columns (N, P) f32 and
+  range bounds (S, P, K, 2) f32, for S signatures in one pass over the rows
+  -> (S, G, M).
+
+Both are bound by the bytes they read (see the note in the source).  The
+wrappers check device, dtype, shape and contiguity, allocate the output,
+launch on the current stream and raise on a launch error; each adds one to
+its count in ``LAUNCHES`` per kernel launch.  Their plain PyTorch versions
+are in ``ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..build import load
+
+OPS = {"sum": 0, "min": 1, "max": 2}
+MAX_SIGNATURES = 64  # one launch evaluates at most this many signatures
+MAX_BOUNDS_BYTES = 32 * 1024  # (S, P, K, 2) bounds staged in shared memory
+
+LAUNCHES = {"seg_agg": 0, "seg_agg_fused": 0}
+
+_PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def kernel_launches() -> dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return dict(LAUNCHES)
+
+
+def reset_kernel_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load("seg_agg")
+    if lib.seg_agg_launch.argtypes is None:  # first use: declare the C ABI
+        lib.seg_agg_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _LL, _INT, _INT,
+                                       _INT, _INT, _PTR]
+        lib.seg_agg_launch.restype = _INT
+        lib.seg_agg_fused_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _LL,
+                                             _INT, _INT, _INT, _INT, _INT,
+                                             _INT, _PTR]
+        lib.seg_agg_fused_launch.restype = _INT
+        lib.seg_agg_error_string.argtypes = [_INT]
+        lib.seg_agg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, t, dtype, ndim: int, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.seg_agg_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _op_code(op: str) -> int:
+    if op not in OPS:
+        raise ValueError(f"unknown op {op!r}")
+    return OPS[op]
+
+
+def seg_agg_cuda(values, ids, mask, num_groups: int, op: str = "sum",
+                 select: bool = True):
+    """Kernel A: (N, M) f32 values, (N,) int32 ids, (N,) f32 mask ->
+    (num_groups, M) f32.  ``select`` keeps masked-out rows out of every
+    group; ``select=False`` is the multiply contract of ``seg_agg_ref``
+    (SUM adds value * mask; MIN/MAX always select)."""
+    code = _op_code(op)
+    dev = values.device
+    _check("values", values, torch.float32, 2, dev)
+    _check("ids", ids, torch.int32, 1, dev)
+    _check("mask", mask, torch.float32, 1, dev)
+    n, m = values.shape
+    if ids.shape[0] != n or mask.shape[0] != n:
+        raise ValueError(f"rows disagree: values {n}, ids {ids.shape[0]}, "
+                         f"mask {mask.shape[0]}")
+    if num_groups < 1 or num_groups >= 2 ** 31:
+        raise ValueError(f"num_groups out of range: {num_groups}")
+    out = torch.empty((num_groups, m), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.seg_agg_launch(values.data_ptr(), ids.data_ptr(),
+                                mask.data_ptr(), out.data_ptr(), n, m,
+                                num_groups, code, int(bool(select)), stream)
+    _raise_on(lib, rc, "seg_agg")
+    LAUNCHES["seg_agg"] += 1
+    return out
+
+
+def seg_agg_fused_cuda(values, ids, pred_cols, bounds, num_groups: int,
+                       op: str = "sum"):
+    """Kernel B: (N, M) f32 values, (N,) int32 ids, (N, P) f32 predicate
+    columns, (S, P, K, 2) f32 bounds -> (S, num_groups, M) f32.  A row
+    counts for signature s iff, for every predicate, one of s's K inclusive
+    ranges holds its value (NaN sentinel and pad ranges as in
+    ``ref.bounds_mask_ref``); P == 0 admits every row.  More than
+    ``MAX_SIGNATURES`` signatures take one launch per chunk."""
+    code = _op_code(op)
+    dev = values.device
+    _check("values", values, torch.float32, 2, dev)
+    _check("ids", ids, torch.int32, 1, dev)
+    _check("pred_cols", pred_cols, torch.float32, 2, dev)
+    _check("bounds", bounds, torch.float32, 4, dev)
+    n, m = values.shape
+    s_total, p, k, two = bounds.shape
+    if ids.shape[0] != n or pred_cols.shape[0] != n:
+        raise ValueError(f"rows disagree: values {n}, ids {ids.shape[0]}, "
+                         f"pred_cols {pred_cols.shape[0]}")
+    if pred_cols.shape[1] != p or two != 2 or k < 1:
+        raise ValueError(f"bounds {tuple(bounds.shape)} do not match "
+                         f"pred_cols {tuple(pred_cols.shape)}")
+    if num_groups < 1 or s_total * num_groups >= 2 ** 31:
+        raise ValueError(f"group space out of range: {s_total} x {num_groups}")
+    chunk = min(s_total, MAX_SIGNATURES)
+    if chunk * p * k * 2 * 4 > MAX_BOUNDS_BYTES:
+        raise ValueError(f"bounds {tuple(bounds.shape)} exceed the "
+                         f"{MAX_BOUNDS_BYTES}-byte shared-memory budget")
+    out = torch.empty((s_total, num_groups, m), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s0 in range(0, s_total, chunk):
+            s1 = min(s0 + chunk, s_total)
+            rc = lib.seg_agg_fused_launch(
+                values.data_ptr(), ids.data_ptr(), pred_cols.data_ptr(),
+                bounds[s0:s1].data_ptr(), out[s0:s1].data_ptr(), n, m, p, k,
+                s1 - s0, num_groups, code, stream)
+            _raise_on(lib, rc, "seg_agg_fused")
+            LAUNCHES["seg_agg_fused"] += 1
+    return out
