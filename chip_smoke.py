@@ -7,24 +7,52 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. build   — compile every CUDA kernel from the sources in this checkout
              (one nvcc per source, all started together).
-2. kernels — hold each kernel against its plain PyTorch version on the card:
-             a small case with NaN values, NaN-sentinel and pad ranges and an
-             empty mask, then a sweep at main-path shapes (N = n_fact).
-             Tolerance: rtol 1e-4, atol 1e-4, NaN where the plain version has
-             NaN (sums use atomics, so their last bits vary run to run).
-             Times the kernel, the plain version and, where one exists, one
-             PyTorch library call computing the same function.
-3. serve   — SSB at ``--n-fact`` rows (SF1's LINEORDER has 6,000,000)
+2. kernels — hold each kernel against its plain PyTorch version on the card.
+             seg_agg / seg_agg_fused: a small case with NaN values,
+             NaN-sentinel and pad ranges and an empty mask, then a sweep at
+             main-path shapes (N = n_fact); rtol 1e-4, atol 1e-4, NaN where
+             the plain version has NaN (sums use atomics, so their last bits
+             vary run to run).  flash_attn: GQA groups 1, 3, 4, S in {1, 77,
+             96, 512, 1000}, causal and not, head dims 64 and 128.
+             decode_attn: caches of 512 and 4096 slots, pos in {1, 77, 511,
+             S}, and cache slots past pos overwritten (999 keys, NaN values)
+             change nothing.  Attention tolerances: float32 2e-3, bfloat16
+             5e-2.  Times each kernel, its plain version and, where one
+             exists, one PyTorch library call computing the same function,
+             at the main path's shapes: device time per call under
+             ``torch.profiler`` (the kernel's CUDA-event time beside it).
+3. llm     — canonicalizer-100m at full width (12 layers, d_model 768, 12/4
+             heads, head dim 64, d_ff 2048, vocab 8192), weights initialised
+             from ``--seed``: (a) teacher forcing on the card, prefill
+             logits against ``forward`` (2e-2) and one ``decode_step``
+             against ``forward`` over S+1 tokens (3e-2), in float32 and
+             bfloat16; (b) the float32 model moved to the CPU (plain
+             attention, chosen by the tensors' device) gives the card's
+             prefill and decode logits within 1e-3, and the share of
+             identical greedy tokens over one generate; (c) 16 SSB NL
+             requests in batches of 8 through a tenant whose NL
+             canonicalizer is ``MemoizedNL(CanonicalizerService(engine))``
+             (bfloat16 engine): every NLResult keeps the protocol, every
+             served table matches the numpy oracle.  The attention kernels'
+             launch counts are read from (c) alone.
+4. serve   — SSB at ``--n-fact`` rows (SF1's LINEORDER has 6,000,000)
              through the SQL pipeline and the semantic cache: the SSB SQL
              stream, the hierarchical drill stream, a 6-tile dashboard
              refresh (one shared scan) and one request whose filter needs
              the host-mask branch.  Every served table is checked against
-             the numpy oracle; the kernel launch counts are read from this
+             the numpy oracle; the seg_agg launch counts are read from this
              phase alone.  Prints per-stage p50/p95 of the request path.
-4. profile — a fresh dataset and tenant replay the first 64 SSB requests
+5. nl      — the SSB mixed stream (SQL and NL) through a fresh tenant whose
+             NL canonicalizer is ``MemoizedNL(SimulatedLLM)``, on the same
+             dataset: every served table against the numpy oracle, no false
+             hit, at least one NL hit.
+6. profile — a fresh dataset and tenant replay the first 64 SSB requests
              under ``torch.profiler`` (device busy share of a cold start, the
              kernels and copies that took the most device time), and again
-             under ``cProfile`` (host functions by own time).
+             under ``cProfile`` (host functions by own time); then one more
+             engine batch of 8 NL questions under ``torch.profiler``: device
+             busy share of prefill + decode loop, device ms per decode step
+             against host ms per step, and the top device ops.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Exits
@@ -34,6 +62,7 @@ are not beside this script.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,7 +71,10 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores
 RTOL = ATOL = 1e-4
+ATTN_TOL = {"float32": 2e-3, "bfloat16": 5e-2}  # tests/test_kernels.py
+NL_BATCH = 8
 
 
 def _fail(msg: str) -> int:
@@ -58,7 +90,9 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device milliseconds per call, timed with CUDA events."""
+    """Mean milliseconds per call between CUDA events around ``iters``
+    back-to-back calls.  Where a call's host work (Python, checks, launch)
+    outlasts its kernels, this measures the host's launch rate."""
     import torch
 
     for _ in range(warmup):
@@ -73,7 +107,36 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(got, want, what: str) -> float:
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device milliseconds per call: the summed duration of every
+    kernel and copy ``torch.profiler`` traced over ``iters`` calls, so the
+    host's gaps between launches are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ms for ms, _ in _device_ops(prof).values())
+    if total <= 0.0:
+        raise AssertionError("the profiler traced no device time")
+    return total / iters
+
+
+def timed(kernel, plain, library, iters: int) -> dict:
+    """Device ms per call of a kernel, its plain version and the library
+    call (None where there is none), and the kernel's CUDA-event ms."""
+    return {"ms": device_ms(kernel, iters),
+            "plain_ms": device_ms(plain, max(3, iters // 4)),
+            "library_ms": None if library is None else device_ms(library, iters),
+            "event_ms": cuda_ms(kernel, iters)}
+
+
+def compare(got, want, what: str, rtol: float = RTOL, atol: float = ATOL) -> float:
     """Max |got - want| over finite entries; raises unless NaNs agree and
     every entry is within rtol/atol."""
     import torch
@@ -88,9 +151,47 @@ def compare(got, want, what: str) -> float:
     same_inf = torch.isinf(w) & (g == w)
     g, w = g[~same_inf], w[~same_inf]
     err = float((g - w).abs().max()) if g.numel() else 0.0
-    if g.numel() and not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
-        raise AssertionError(f"{what}: max abs err {err} beyond rtol {RTOL}")
+    if g.numel() and not torch.allclose(g, w, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max abs err {err} beyond rtol {rtol}, atol {atol}")
     return err
+
+
+def finite(t, what: str):
+    """``t`` unchanged; raises unless every entry is finite (``compare``
+    skips NaN positions, so logits are held to this first)."""
+    import torch
+
+    if not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{what}: {int((~torch.isfinite(t)).sum())} entries not finite")
+    return t
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    from repro_torch.kernels.decode_attn import kernel as D
+    from repro_torch.kernels.flash_attn import kernel as F
+    from repro_torch.kernels.seg_agg import kernel as S
+
+    return {**S.kernel_launches(), **F.LAUNCHES, **D.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels.decode_attn import kernel as D
+    from repro_torch.kernels.flash_attn import kernel as F
+    from repro_torch.kernels.seg_agg import kernel as S
+
+    S.reset_kernel_launches()
+    F.LAUNCHES["flash_attn"] = 0
+    D.LAUNCHES["decode_attn"] = 0
+
+
+def with_bound(t: dict, ops_per_s: float) -> dict:
+    """Adds ``bound_ms`` (the larger of bytes over the HBM rate and
+    operations over ``ops_per_s``) and ``bound_by``."""
+    by_bytes, by_ops = t["bytes"] / HBM_BYTES_PER_S, t["ops"] / ops_per_s
+    t["bound_ms"] = max(by_bytes, by_ops) * 1e3
+    t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return t
 
 
 # --------------------------------------------------------------- kernels
@@ -179,11 +280,9 @@ def kernel_times(n_fact: int, dev, gen, iters: int) -> dict:
     ids64 = ids.long()
     byts = n * (m + 2) * 4 + g * m * 4
     out["seg_agg"] = {
-        "ms": cuda_ms(lambda: K.seg_agg_cuda(v, ids, mask, g, "sum"), iters),
-        "plain_ms": cuda_ms(lambda: R.seg_agg_masked_ref(v, ids, mask, g, "sum"),
-                            max(3, iters // 4)),
-        "library_ms": cuda_ms(lambda: torch.zeros(g, m, device=dev).index_add_(0, ids64, pre),
-                              iters),
+        **timed(lambda: K.seg_agg_cuda(v, ids, mask, g, "sum"),
+                lambda: R.seg_agg_masked_ref(v, ids, mask, g, "sum"),
+                lambda: torch.zeros(g, m, device=dev).index_add_(0, ids64, pre), iters),
         "bytes": byts, "ops": n * m,
         "shape": f"values ({n},{m}) ids ({n},) mask ({n},) G={g} sum",
     }
@@ -194,18 +293,259 @@ def kernel_times(n_fact: int, dev, gen, iters: int) -> dict:
                      device=dev)
     byts = n * (m + 1 + p) * 4 + s * g * m * 4 + b.numel() * 4
     out["seg_agg_fused"] = {
-        "ms": cuda_ms(lambda: K.seg_agg_fused_cuda(v, ids, pred, b, g, "sum"), iters),
-        "plain_ms": cuda_ms(lambda: R.seg_agg_batch_ref(v, ids, pred, b, g, "sum"),
-                            max(3, iters // 4)),
-        "library_ms": None,
+        **timed(lambda: K.seg_agg_fused_cuda(v, ids, pred, b, g, "sum"),
+                lambda: R.seg_agg_batch_ref(v, ids, pred, b, g, "sum"), None, iters),
         "bytes": byts, "ops": n * p * s * 2 + n * m * s,
         "shape": f"values ({n},{m}) ids ({n},) pred ({n},{p}) bounds {tuple(b.shape)} G={g} sum",
     }
-    for t in out.values():
-        t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / F32_OPS_PER_S) * 1e3
-        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
-                         >= t["ops"] / F32_OPS_PER_S else "operations")
-    return out
+    return {k: with_bound(t, F32_OPS_PER_S) for k, t in out.items()}
+
+
+def attention_checks(dev, gen) -> dict:
+    import torch
+
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ref as DR
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as FR
+
+    errs = {"flash_attn": 0.0, "decode_attn": 0.0}
+    b, hkv = 2, 2
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dtype).removeprefix("torch.")]
+        for dh in (64, 128):
+            for g in (1, 3, 4):
+                h = hkv * g
+                for s in (1, 77, 96, 512, 1000):
+                    q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(dtype)
+                    k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
+                            for _ in range(2))
+                    for causal in (True, False):
+                        what = f"flash {dtype} dh={dh} G={g} S={s} causal={causal}"
+                        err = compare(FK.flash_attention_cuda(q, k, v, causal=causal),
+                                      FR.mha_ref(q, k, v, causal=causal), what, tol, tol)
+                        errs["flash_attn"] = max(errs["flash_attn"], err)
+                for s in (512, 4096):
+                    q = torch.randn(4, h, dh, generator=gen, device=dev).to(dtype)
+                    k, v = (torch.randn(4, hkv, s, dh, generator=gen, device=dev).to(dtype)
+                            for _ in range(2))
+                    pos = torch.tensor([1, 77, 511, s], dtype=torch.int32, device=dev)
+                    what = f"decode {dtype} dh={dh} G={g} S={s}"
+                    got = DK.decode_attention_cuda(q, k, v, pos)
+                    err = compare(got, DR.decode_attention_ref(q, k, v, pos), what, tol, tol)
+                    errs["decode_attn"] = max(errs["decode_attn"], err)
+                    for i, p in enumerate(pos.tolist()):
+                        k[i, :, p:], v[i, :, p:] = 999.0, float("nan")
+                    if not torch.equal(DK.decode_attention_cuda(q, k, v, pos), got):
+                        raise AssertionError(f"{what}: slots past pos changed the output")
+    torch.cuda.synchronize()
+    return errs
+
+
+def attention_times(dev, gen, plen: int, iters: int) -> dict:
+    """Kernel, plain and library times at the serving engine's shapes:
+    canonicalizer-100m (12 heads over 4 KV heads, head dim 64), a batch of 8
+    prompts padded to ``plen`` tokens in bfloat16; decode over a 512-slot
+    cache at the first decode step (pos = plen + 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ref as DR
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as FR
+
+    b, h, hkv, dh, cache, bf = 8, 12, 4, 64, 512, torch.bfloat16
+    s = plen
+    q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(bf) for _ in range(2))
+    out = {"flash_attn": {
+        **timed(lambda: FK.flash_attention_cuda(q, k, v), lambda: FR.mha_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), iters),
+        # q, K, V read once and the output written once; causal valid keys
+        "bytes": 2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh),
+        "ops": 4 * b * h * (s * (s + 1) // 2) * dh,
+        "shape": f"q ({b},{h},{s},{dh}) k/v ({b},{hkv},{s},{dh}) bf16 causal",
+    }}
+    pos_n = plen + 1
+    qd = torch.randn(b, h, dh, generator=gen, device=dev).to(bf)
+    kc, vc = (torch.randn(b, hkv, cache, dh, generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    pos = torch.full((b,), pos_n, dtype=torch.int32, device=dev)
+    mask = (torch.arange(cache, device=dev) < pos[:, None])[:, None, None, :]
+    q4 = qd[:, :, None, :]
+    out["decode_attn"] = {
+        **timed(lambda: DK.decode_attention_cuda(qd, kc, vc, pos),
+                lambda: DR.decode_attention_ref(qd, kc, vc, pos),
+                lambda: F.scaled_dot_product_attention(
+                    q4, kc, vc, attn_mask=mask, enable_gqa=True), iters),
+        # q and the output once, the first pos keys and values once, pos
+        "bytes": 2 * (2 * b * h * dh + 2 * b * hkv * pos_n * dh) + 4 * b,
+        "ops": 4 * b * h * pos_n * dh,
+        "shape": f"q ({b},{h},{dh}) cache ({b},{hkv},{cache},{dh}) pos={pos_n} bf16",
+    }
+    return {k: with_bound(t, BF16_OPS_PER_S) for k, t in out.items()}
+
+
+# ---------------------------------------------------------------- oracle
+
+
+class Oracle:
+    """Every served table against the numpy oracle, memoized by signature
+    key across phases (they share one dataset)."""
+
+    def __init__(self, wl):
+        from repro_torch.olap.executor import OlapExecutor
+
+        self.executor = OlapExecutor(wl.dataset, impl="numpy")
+        self.truth: dict[str, object] = {}
+
+    def check(self, results) -> dict:
+        false_hits = wrong = checked = 0
+        for r in results:
+            if r.table is None:
+                if r.status != "bypass" or any(p.startswith("execute:")
+                                               for p in r.provenance):
+                    raise AssertionError(f"no table for {r.status}: {r.provenance}")
+                continue  # a bypass that executes nothing serves nothing
+            if r.signature is None:
+                raise AssertionError(f"a table without a signature: {r.provenance}")
+            key = r.signature.key()
+            if key not in self.truth:
+                self.truth[key] = self.executor.execute(r.signature)
+            checked += 1
+            if not r.table.equals(self.truth[key], ordered=bool(r.signature.order_by)):
+                if r.hit:
+                    false_hits += 1
+                else:
+                    wrong += 1
+        if false_hits or wrong:
+            raise AssertionError(f"{false_hits} false hits, {wrong} wrong tables")
+        return {"tables_checked": checked, "false_hits": false_hits}
+
+
+def _statuses(results) -> dict:
+    return dict(sorted({s: sum(r.status == s for r in results)
+                        for s in {r.status for r in results}}.items()))
+
+
+# ----------------------------------------------------------------- llm
+
+
+def _nl_texts(wl, n: int, skip: int = 0) -> list[str]:
+    return list(dict.fromkeys(q.text for q in wl.queries() if q.kind == "nl"))[skip:skip + n]
+
+
+def _prompt_len(tok, texts, max_len: int = 512) -> int:
+    """Padded prompt length of one engine batch (CanonicalizerService's
+    prompts, truncated as ServingEngine.generate truncates them)."""
+    return max(len(tok.encode(f"question: {t}\nsignature: ", add_bos=True)[-max_len // 2:])
+               for t in texts)
+
+
+def llm_phase(wl, oracle, seed: int) -> dict:
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.core.nl_canon import MemoizedNL
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving.engine import CanonicalizerService, ServingEngine
+    from repro_torch.service.pipeline import QueryRequest, run_pipeline
+    from repro_torch.training.tokenizer import build_tokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get("canonicalizer-100m")
+    out: dict = {"config": {k: getattr(cfg, k) for k in (
+        "n_layers", "d_model", "n_heads", "kv_heads", "head_dim", "d_ff", "vocab")}}
+    gen = torch.Generator().manual_seed(seed)
+    b, s = 4, 64
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen).cuda()
+    nxt = tokens[:, -1]
+    ext = torch.cat([tokens, nxt[:, None]], dim=1)
+
+    # (a) teacher forcing on the card: prefill (flash kernel) against
+    # forward, one decode step (decode kernel) against forward over S+1
+    tf = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = tt.init_params(c, seed, device="cuda")
+        with torch.inference_mode():
+            full = tt.forward(c, params, tokens=tokens)
+            logits, caches, pos = tt.prefill(c, params, tokens=tokens, cache_len=s + 8)
+            step, caches, pos = tt.decode_step(c, params, nxt, caches, pos)
+            full2 = tt.forward(c, params, tokens=ext)
+        name = str(dtype).removeprefix("torch.")
+        for what, t in (("forward", full), ("prefill", logits), ("decode", step),
+                        ("forward S+1", full2)):
+            finite(t, f"{what} {name}")
+        tf[name] = {"prefill": compare(logits, full[:, -1], f"prefill {name}", 2e-2, 2e-2),
+                    "decode": compare(step, full2[:, -1], f"decode {name}", 3e-2, 3e-2),
+                    "logits_std": float(full.std()),
+                    "logits_absmax": float(full.abs().max())}
+    out["teacher_forcing_max_abs_err"] = tf
+
+    # (b) the same float32 model on the CPU: plain attention, same logits
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p_card = tt.init_params(c32, seed, device="cuda")
+    p_cpu = tt.to_device(p_card, "cpu")
+    with torch.inference_mode():
+        card = tt.prefill(c32, p_card, tokens=tokens, cache_len=s + 8)
+        card_step = tt.decode_step(c32, p_card, nxt, card[1], card[2])[0]
+        host = tt.prefill(c32, p_cpu, tokens=tokens.cpu(), cache_len=s + 8)
+        host_step = tt.decode_step(c32, p_cpu, nxt.cpu(), host[1], host[2])[0]
+    out["card_vs_cpu_max_abs_err"] = {
+        "prefill": compare(finite(card[0], "card prefill"), host[0],
+                           "card vs cpu prefill", 1e-3, 1e-3),
+        "decode": compare(finite(card_step, "card decode"), host_step,
+                          "card vs cpu decode", 1e-3, 1e-3)}
+    tok = build_tokenizer([wl])
+    prompts = [f"question: {t}\nsignature: " for t in _nl_texts(wl, 4)]
+    gens = [ServingEngine(c32, p, tok, device=d).generate(prompts, max_new_tokens=32)
+            for p, d in ((p_card, "cuda"), (p_cpu, "cpu"))]
+    pairs = [(x, y) for g0, g1 in zip(*gens) for x, y in zip(g0["tokens"], g1["tokens"])]
+    out["greedy_tokens_identical_share"] = sum(x == y for x, y in pairs) / max(len(pairs), 1)
+    del p_card, p_cpu
+
+    # (c) NL requests through the pipeline, the bfloat16 engine on the card
+    engine = ServingEngine(cfg, tt.init_params(cfg, seed, device="cuda"), tok)
+    nl = MemoizedNL(CanonicalizerService(engine, wl.schema.name))
+    tenant = serve.build_tenant(wl, device="cuda", nl=nl)
+    texts = _nl_texts(wl, 2 * NL_BATCH)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = []
+    for i in range(0, len(texts), NL_BATCH):
+        results += run_pipeline(tenant, [QueryRequest(nl=t) for t in texts[i:i + NL_BATCH]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for r in nl._memo.values():
+        if (r.signature is None) != (r.error is not None):
+            raise AssertionError(f"NLResult breaks the protocol: {r}")
+    if nl.calls != len(texts):
+        raise AssertionError(f"{nl.calls} canonicalizer calls for {len(texts)} texts")
+    if launches["flash_attn"] != cfg.n_layers * len(texts) // NL_BATCH \
+            or launches["decode_attn"] != cfg.n_layers * engine.steps:
+        raise AssertionError(f"attention launches {launches} for {engine.steps} steps")
+    generated = sum(len(r.raw_json) > 0 for r in nl._memo.values())
+    out["pipeline"] = {
+        "requests": len(results), "statuses": _statuses(results),
+        "nl_gated": tenant.stats.nl_gated,
+        "errors": sorted({(r.error or "")[:40] for r in nl._memo.values()}),
+        "prompt_len": [_prompt_len(tok, texts[i:i + NL_BATCH])
+                       for i in range(0, len(texts), NL_BATCH)],
+        "engine_wall_s": wall, "decode_steps": engine.steps,
+        "host_ms_per_step": engine.host_s / max(engine.steps, 1) * 1e3,
+        "model_ms_per_step": engine.model_s / max(engine.steps, 1) * 1e3,
+        "tokens_per_s": engine.steps * NL_BATCH / wall,
+        "rows_with_output": generated,
+        **oracle.check(results),
+    }
+    return {"launches": launches, "summary": out, "engine": engine}
 
 
 # ----------------------------------------------------------------- serve
@@ -221,36 +561,30 @@ HOST_MASK = ("SELECT c_region, SUM(lo_revenue) AS rev, COUNT(*) AS n FROM lineor
              "WHERE lo_extendedprice > 5000.25 GROUP BY c_region")
 
 
-def serve_phase(n_fact: int, seed: int) -> dict:
+def serve_phase(wl, oracle) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.seg_agg.kernel import kernel_launches, reset_kernel_launches
     from repro_torch.launch import serve
-    from repro_torch.olap.executor import OlapExecutor
     from repro_torch.service.pipeline import QueryRequest, run_pipeline
-    from repro_torch.workloads import ssb
 
-    t0 = time.perf_counter()
-    wl = ssb.build(n_fact=n_fact, seed=seed)
     tenant = serve.build_tenant(wl, device="cuda")
-    oracle = OlapExecutor(wl.dataset, impl="numpy")
-    secs = {"synthesis": time.perf_counter() - t0}
     torch.cuda.reset_peak_memory_stats()
 
+    secs = {}
     t0 = time.perf_counter()
-    reset_kernel_launches()
+    reset_launch_counts()
     results = []
     for name, sqls in serve.sql_streams(wl).items():
         results += serve.replay(tenant, sqls, batch=8)
-    before = kernel_launches()
+    before = launch_counts()
     groups = tenant.backend.batch_groups
     tiles = run_pipeline(tenant, [QueryRequest(sql=DASHBOARD.format(y=y))
                                   for y in range(1992, 1998)])
-    mid = kernel_launches()
+    mid = launch_counts()
     host = run_pipeline(tenant, [QueryRequest(sql=HOST_MASK)])
     torch.cuda.synchronize()
-    launches = kernel_launches()
+    launches = launch_counts()
     secs["serve"] = time.perf_counter() - t0
     results += tiles + host
 
@@ -265,27 +599,14 @@ def serve_phase(n_fact: int, seed: int) -> dict:
         raise AssertionError(f"host-mask request: {host[0].status}, {mid} -> {launches}")
 
     t0 = time.perf_counter()
-    truth: dict[str, object] = {}
-    wrong_miss = false_hits = 0
-    for r in results:
-        if r.table is None:
-            raise AssertionError(f"no table for {r.status}: {r.provenance}")
-        key = r.signature.key()
-        if key not in truth:
-            truth[key] = oracle.execute(r.signature)
-        if not r.table.equals(truth[key], ordered=bool(r.signature.order_by)):
-            if r.hit:
-                false_hits += 1
-            else:
-                wrong_miss += 1
+    if any(r.table is None for r in results):
+        raise AssertionError("a SQL request was served no table")
+    checked = oracle.check(results)
     secs["oracle_check"] = time.perf_counter() - t0
-    statuses = dict(sorted(
-        {s: sum(r.status == s for r in results) for s in {r.status for r in results}}.items()))
-    if false_hits or wrong_miss:
-        raise AssertionError(f"{false_hits} false hits, {wrong_miss} wrong miss tables")
+    statuses = _statuses(results)
     if not {"hit_exact", "hit_rollup", "miss"} <= set(statuses):
         raise AssertionError(f"statuses {statuses}")
-    if not all(launches.values()):
+    if not (launches["seg_agg"] and launches["seg_agg_fused"]):
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
     per_req = np.array([sum(r.timings_ms.values()) for r in results])
     stages = {}
@@ -302,9 +623,8 @@ def serve_phase(n_fact: int, seed: int) -> dict:
     return {
         "launches": launches,
         "summary": {
-            "n_fact": n_fact, "requests": len(results), "statuses": statuses,
-            "hit_rate": s.hit_rate, "false_hits": false_hits,
-            "unique_tables_checked": len(truth),
+            "n_fact": wl.dataset.fact.num_rows, "requests": len(results), "statuses": statuses,
+            "hit_rate": s.hit_rate, **checked,
             "backend_executions": tenant.backend.executions,
             "batch_groups": tenant.backend.batch_groups,
             "rows_scanned": tenant.backend.rows_scanned,
@@ -323,12 +643,61 @@ def serve_phase(n_fact: int, seed: int) -> dict:
     }
 
 
+def nl_phase(wl, oracle) -> dict:
+    """The SSB mixed stream, SQL and NL, with NL canonicalized by the
+    calibrated SimulatedLLM behind the balanced safety policy."""
+    import torch
+
+    from repro_torch.core.nl_canon import MemoizedNL, SimulatedLLM
+    from repro_torch.launch import serve
+
+    tenant = serve.build_tenant(wl, device="cuda",
+                                nl=MemoizedNL(SimulatedLLM(wl.vocab)))
+    reqs = serve.mixed_streams(wl)["ssb_mixed"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = serve.replay(tenant, reqs, batch=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    checked = oracle.check(results)
+    nl = [r for r in results if r.origin == "nl"]
+    nl_hits = sum(r.hit for r in nl)
+    if not nl_hits:
+        raise AssertionError(f"no NL hit: {_statuses(nl)}")
+    if not launches["seg_agg_fused"]:
+        raise AssertionError(f"no miss reached the kernels: {launches}")
+    return {"launches": launches, "summary": {
+        "requests": len(results), "nl_requests": len(nl), "statuses": _statuses(results),
+        "nl_statuses": _statuses(nl), "nl_hits": nl_hits, "nl_gated": tenant.stats.nl_gated,
+        "hit_rate": tenant.cache.stats.hit_rate, "serve_s": wall, **checked}}
+
+
+# --------------------------------------------------------------- profile
+
+
 def _cold_tenant(n_fact: int, seed: int, requests: int):
     from repro_torch.launch import serve
     from repro_torch.workloads import ssb
 
     wl = ssb.build(n_fact=n_fact, seed=seed)
     return serve.build_tenant(wl, device="cuda"), serve.sql_streams(wl, requests)["ssb_sql"]
+
+
+def _device_ops(prof) -> dict[str, tuple[float, int]]:
+    """(device ms, count) of every kernel and copy the profiler traced, by name."""
+    import torch
+
+    ops: dict[str, tuple[float, int]] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = ops.get(e.name, (0.0, 0))
+            ops[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return ops
+
+
+def _top(by_name: dict, n: int = 6) -> dict:
+    return {k[:60]: v for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]}
 
 
 def profile_sample(n_fact: int, seed: int, requests: int = 64) -> dict:
@@ -364,17 +733,45 @@ def profile_sample(n_fact: int, seed: int, requests: int = 64) -> dict:
     hot = sorted(st.items(), key=lambda kv: -kv[1][2])[:8]
     host_top = {f"{Path(f).name}:{ln}:{fn}": round(v[2] * 1e3, 1)
                 for (f, ln, fn), v in hot}
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    by_name = {k: v[0] for k, v in _device_ops(prof).items()}
     device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"requests": len(sqls), "wall_ms": wall_ms,
             "device_ms": device_ms if by_name else None,
             "device_busy_share": device_ms / wall_ms if by_name else None,
-            "top_device_ms": {k[:60]: v for k, v in top},
+            "top_device_ms": _top(by_name),
             "host_own_ms_top": host_top}
+
+
+def profile_engine(engine, wl) -> dict:
+    """One more engine batch of 8 NL questions (not seen before) under
+    ``torch.profiler``: device busy share of prefill + decode loop, device
+    ms per decode step next to the engine's host ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import CanonicalizerService
+
+    svc = CanonicalizerService(engine, wl.schema.name)
+    texts = _nl_texts(wl, NL_BATCH, skip=2 * NL_BATCH)
+    steps0, host0, model0 = engine.steps, engine.host_s, engine.model_s
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        svc.canonicalize_batch(texts)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = engine.steps - steps0
+    ops = _device_ops(prof)
+    by_name = {k: v[0] for k, v in ops.items()}
+    device_ms = sum(by_name.values())
+    return {"prompts": len(texts), "decode_steps": steps, "wall_ms": wall_ms,
+            "device_ops_per_step": sum(n for _, n in ops.values()) / max(steps, 1),
+            "device_ms": device_ms if by_name else None,
+            "device_busy_share": device_ms / wall_ms if by_name else None,
+            "device_ms_per_step": device_ms / max(steps, 1) if by_name else None,
+            "host_ms_per_step": (engine.host_s - host0) / max(steps, 1) * 1e3,
+            "model_ms_per_step": (engine.model_s - model0) / max(steps, 1) * 1e3,
+            "top_device_ms": _top(by_name, 8)}
 
 
 SOURCES = {
@@ -382,6 +779,10 @@ SOURCES = {
                 "src/repro/kernels/seg_agg/kernel.py:29 _seg_agg_kernel"),
     "seg_agg_fused": ("src/repro_torch/kernels/seg_agg/csrc/seg_agg.cu",
                       "src/repro/kernels/seg_agg/kernel.py:108 _seg_agg_fused_kernel"),
+    "flash_attn": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+                   "src/repro/kernels/flash_attn/kernel.py:26 _flash_kernel"),
+    "decode_attn": ("src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+                    "src/repro/kernels/decode_attn/kernel.py:24 _decode_kernel"),
 }
 
 
@@ -403,6 +804,8 @@ def main(argv=None) -> int:
         return _fail(f"the port's sources are not at {src}/repro_torch")
     sys.path.insert(0, str(src))
     from repro_torch.kernels.build import build_all
+    from repro_torch.training.tokenizer import build_tokenizer
+    from repro_torch.workloads import ssb
 
     t_all = time.perf_counter()
     card = nvidia_smi()
@@ -410,32 +813,56 @@ def main(argv=None) -> int:
     built = build_all()
     print(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.1f} s; card: {card}")
 
+    t0 = time.perf_counter()
+    wl = ssb.build(n_fact=args.n_fact, seed=args.seed)
+    oracle = Oracle(wl)
+    print(f"[data] SSB {args.n_fact} rows from seed {args.seed} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    plen = _prompt_len(build_tokenizer([wl]), _nl_texts(wl, NL_BATCH))
+
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     t0 = time.perf_counter()
-    errs = kernel_checks(args.n_fact, dev, gen)
-    times = kernel_times(args.n_fact, dev, gen, args.iters)
+    errs = {**kernel_checks(args.n_fact, dev, gen), **attention_checks(dev, gen)}
+    times = {**kernel_times(args.n_fact, dev, gen, args.iters),
+             **attention_times(dev, gen, plen, 10 * args.iters)}
     print(f"[kernels] {time.perf_counter() - t0:.1f} s; max abs err {json.dumps(errs)}")
     for name, t in times.items():
-        print(f"[kernels] {name} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        print(f"[kernels] {name} {t['shape']}: device ms per call: kernel "
+              f"{t['ms']:.4f}, plain {t['plain_ms']:.4f}, library {t['library_ms']}; "
+              f"bound {t['bound_ms']:.5f} ({t['bound_by']}); kernel by CUDA events "
+              f"{t['event_ms']:.4f}")
 
-    served = serve_phase(args.n_fact, args.seed)
-    print(f"[serve] {json.dumps(served['summary'])}")
     t0 = time.perf_counter()
-    print(f"[profile] {json.dumps(profile_sample(args.n_fact, args.seed))} "
+    llm = llm_phase(wl, oracle, args.seed)
+    print(f"[llm] {json.dumps(llm['summary'])} launches {json.dumps(llm['launches'])} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    served = serve_phase(wl, oracle)
+    print(f"[serve] {json.dumps(served['summary'])} launches {json.dumps(served['launches'])}")
+    t0 = time.perf_counter()
+    nl = nl_phase(wl, oracle)
+    print(f"[nl] {json.dumps(nl['summary'])} launches {json.dumps(nl['launches'])} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[profile] {json.dumps(profile_sample(args.n_fact, args.seed))}")
+    print(f"[profile] engine {json.dumps(profile_engine(llm['engine'], wl))} "
           f"in {time.perf_counter() - t0:.1f} s")
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
 
+    path_launches = {"seg_agg": served["launches"]["seg_agg"],
+                     "seg_agg_fused": served["launches"]["seg_agg_fused"],
+                     "flash_attn": llm["launches"]["flash_attn"],
+                     "decode_attn": llm["launches"]["decode_attn"]}
+    if not all(path_launches.values()):
+        raise AssertionError(f"a kernel was never launched on its path: {path_launches}")
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
-        "replaces": SOURCES[name][1], "launches": served["launches"][name],
+        "replaces": SOURCES[name][1], "launches": path_launches[name],
         "max_abs_err": errs[name], "ms": times[name]["ms"],
         "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
         "bound_by": times[name]["bound_by"], "library_ms": times[name]["library_ms"],
-    } for name in ("seg_agg", "seg_agg_fused")]
+    } for name in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,9 @@ this module provides:
 * :class:`MemoizedNL` — the paper's NL-string -> signature memo (repeat NL
   requests skip the LLM; Table 4a "Repeat (memo) < 0.01 ms").
 
-A real-model path exists too: ``repro.serving.engine.CanonicalizerService``
-drives any of the ten assigned architectures with grammar-constrained JSON
-decoding and plugs in behind the same :class:`NLCanonicalizer` protocol.
+A real-model path exists too: ``repro_torch.serving.engine.CanonicalizerService``
+drives the dense transformer with grammar-constrained JSON decoding and
+plugs in behind the same :class:`NLCanonicalizer` protocol.
 """
 from __future__ import annotations
 

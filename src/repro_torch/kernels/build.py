@@ -26,6 +26,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"  # <checkout>/build/kernels
 # library name -> its CUDA sources
 SOURCES: dict[str, tuple[Path, ...]] = {
     "seg_agg": (_PKG / "seg_agg" / "csrc" / "seg_agg.cu",),
+    "flash_attn": (_PKG / "flash_attn" / "csrc" / "flash_attn.cu",),
+    "decode_attn": (_PKG / "decode_attn" / "csrc" / "decode_attn.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

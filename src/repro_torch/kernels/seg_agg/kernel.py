@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from ..binding import INT as _INT, LL as _LL, PTR as _PTR, check_tensor, raise_on
 from ..build import load
 
 OPS = {"sum": 0, "min": 1, "max": 2}
@@ -30,8 +31,6 @@ MAX_SIGNATURES = 64  # one launch evaluates at most this many signatures
 MAX_BOUNDS_BYTES = 32 * 1024  # (S, P, K, 2) bounds staged in shared memory
 
 LAUNCHES = {"seg_agg": 0, "seg_agg_fused": 0}
-
-_PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def kernel_launches() -> dict[str, int]:
@@ -60,24 +59,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(name: str, t, dtype, ndim: int, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {t.device}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    check_tensor(name, t, (dtype,), ndim, device)
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.seg_agg_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+    raise_on(rc, lib.seg_agg_error_string, what)
 
 
 def _op_code(op: str) -> int:

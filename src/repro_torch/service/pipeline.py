@@ -1,12 +1,18 @@
-"""The staged request pipeline for SQL requests (one tenant, one batch).
+"""The staged request pipeline for SQL and NL requests (one tenant, one batch).
 
-Every SQL request passes through the stage sequence of the JAX package's
+Every request passes through the stage sequence of the JAX package's
 ``repro/service/pipeline.py``:
 
-    canonicalize -> validate -> lookup -> plan -> execute -> store
+    canonicalize -> validate -> gate (NL safety) -> lookup -> plan ->
+    execute -> store
 
 Stages operate on the whole batch at once:
 
+* **canonicalize** groups NL requests sharing a ``now`` anchor into one
+  ``canonicalize_batch`` call when the canonicalizer has one (the serving
+  engine decodes the whole group in one batched prefill/decode);
+* **gate** holds NL signatures to the tenant's :class:`SafetyPolicy`; a
+  gated request bypasses the cache but its (valid) signature still runs;
 * **plan** dedups identical in-flight signatures — one backend execution
   serves every requester of the same intent within the batch;
 * **execute** routes the batch's unique misses through
@@ -15,22 +21,25 @@ Stages operate on the whole batch at once:
 
 Statuses (``hit_exact`` | ``hit_rollup`` | ``hit_filterdown`` |
 ``hit_compose`` | ``miss`` | ``bypass``) and provenance strings are those of
-the reference pipeline for SQL requests against a plain
-:class:`SemanticCache`.  Not ported yet: NL, governed-metric and signature
-requests, the sharded cluster cache with single-flight coalescing, the
-resilience plane (retries, breakers, deadlines, degraded serving — a
-backend failure raises here), the ``read_only``/``refresh`` request
-options, tracing and stage histograms.
+the reference pipeline against a plain :class:`SemanticCache`.  Not ported
+yet: governed-metric and signature requests, the sharded cluster cache with
+single-flight coalescing, the resilience plane (retries, breakers,
+deadlines, degraded serving — a backend or canonicalizer failure raises
+here), the ``read_only``/``refresh`` request options, tracing and stage
+histograms.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime as _dt
 import threading
 import time
 from typing import Optional
 
 from ..analysis.sanitizer import make_lock
 from ..core.cache import LookupResult, SemanticCache
+from ..core.nl_canon import NLCanonicalizer, NLResult
+from ..core.safety import SafetyPolicy, gate_nl, verify_hit_time_window
 from ..core.schema import StarSchema
 from ..core.signature import Signature
 from ..core.sql_canon import CanonicalizationError, SQLCanonicalizer
@@ -41,11 +50,24 @@ from ..core.validator import SignatureValidator
 
 @dataclasses.dataclass(frozen=True)
 class QueryRequest:
-    """One SQL request.  ``scope`` partitions the key space within a tenant
-    (scoped signatures hash to disjoint keys)."""
+    """One SQL or NL request: exactly one of ``sql`` / ``nl`` is set.
+    ``scope`` partitions the key space within a tenant (scoped signatures
+    hash to disjoint keys); ``now`` anchors relative-time NL phrases."""
 
-    sql: str
+    sql: Optional[str] = None
+    nl: Optional[str] = None
     scope: Optional[str] = None
+    now: Optional[_dt.date] = None
+
+    def __post_init__(self):
+        forms = [f for f, v in (("sql", self.sql), ("nl", self.nl)) if v is not None]
+        if len(forms) != 1:
+            raise ValueError("QueryRequest needs exactly one of sql | nl, "
+                             f"got {forms or 'none'}")
+
+    @property
+    def kind(self) -> str:
+        return "sql" if self.sql is not None else "nl"
 
 
 @dataclasses.dataclass
@@ -58,7 +80,9 @@ class QueryResult:
     status: str
     table: Optional[ResultTable]
     signature: Optional[Signature]
+    origin: str = "sql"  # 'sql' | 'nl'
     bypass_reason: Optional[str] = None
+    confidence: Optional[float] = None
     source_origin: Optional[str] = None
     source_snapshot: Optional[str] = None
     provenance: tuple[str, ...] = ()
@@ -79,6 +103,7 @@ class TenantStats:
     requests: int = 0  # guarded-by: self._lock
     batches: int = 0  # guarded-by: self._lock
     bypasses: int = 0  # guarded-by: self._lock
+    nl_gated: int = 0  # guarded-by: self._lock
     backend_executions: int = 0  # guarded-by: self._lock
     # misses served through a shared execute_batch scan
     batched_misses: int = 0  # guarded-by: self._lock
@@ -98,24 +123,29 @@ class TenantStats:
 @dataclasses.dataclass
 class Tenant:
     """One schema universe and its serving machinery: backend (an
-    ``OlapExecutor``), semantic cache, canonicalizer and validator."""
+    ``OlapExecutor``), semantic cache, NL canonicalizer and safety policy,
+    SQL canonicalizer and validator."""
 
     schema: StarSchema
     backend: object
     cache: SemanticCache
     sql_canon: SQLCanonicalizer
     validator: SignatureValidator
+    nl: Optional[NLCanonicalizer] = None
+    policy: SafetyPolicy = SafetyPolicy()
     # data snapshot the stored tables reflect (provenance on later hits)
     snapshot_id: str = "snap0"
     stats: TenantStats = dataclasses.field(default_factory=TenantStats)
 
     @classmethod
     def create(cls, schema: StarSchema, backend,
-               cache: Optional[SemanticCache] = None) -> "Tenant":
+               cache: Optional[SemanticCache] = None,
+               nl: Optional[NLCanonicalizer] = None,
+               policy: SafetyPolicy = SafetyPolicy()) -> "Tenant":
         return cls(schema=schema, backend=backend,
                    cache=cache if cache is not None else SemanticCache(schema),
                    sql_canon=SQLCanonicalizer(schema),
-                   validator=SignatureValidator(schema))
+                   validator=SignatureValidator(schema), nl=nl, policy=policy)
 
 
 @dataclasses.dataclass
@@ -123,12 +153,19 @@ class RequestState:
     """Mutable per-request pipeline state threaded through the stages."""
 
     req: QueryRequest
+    origin: str
     sig: Optional[Signature] = None
+    nl_res: Optional[NLResult] = None
     status: Optional[str] = None  # None while still flowing; set when decided
     table: object = None
+    confidence: Optional[float] = None
     bypass_reason: Optional[str] = None
     source_origin: Optional[str] = None
     source_snapshot: Optional[str] = None
+    store: bool = True
+    # what the execute stage runs for a bypassed request: the raw SQL text,
+    # the (validated) signature, or nothing
+    bypass_exec: Optional[str] = None  # 'raw' | 'sig' | None
     batched: bool = False
     deduped: bool = False
     provenance: list = dataclasses.field(default_factory=list)
@@ -141,35 +178,79 @@ class RequestState:
     def add_ms(self, stage: str, ms: float) -> None:
         self.timings[stage] = self.timings.get(stage, 0.0) + ms
 
-    def bypass(self, reason: str) -> None:
-        """Out of the cache's scope: never looked up or stored, but the raw
-        SQL still runs on the backend."""
+    def bypass(self, reason: str, exec_mode: Optional[str] = None) -> None:
+        """Out of the cache's scope: never looked up or stored; the execute
+        stage runs the raw SQL (``'raw'``), the signature (``'sig'``) or
+        nothing (None)."""
         self.status = "bypass"
         self.bypass_reason = reason
+        self.bypass_exec = exec_mode
+        self.store = False
         self.provenance.append(f"bypass:{reason.split(';')[0][:60]}")
 
 
 def run_pipeline(tenant: Tenant, requests: list[QueryRequest]) -> list[QueryResult]:
-    """Run one batch of SQL requests through every stage, preserving order."""
-    states = [RequestState(req=r) for r in requests]
+    """Run one batch of requests through every stage, preserving order."""
+    states = [RequestState(req=r, origin=r.kind) for r in requests]
     tenant.stats.bump(requests=len(states), batches=1)
-    for stage in (_stage_canonicalize, _stage_validate, _stage_lookup,
-                  _stage_plan_and_execute, _stage_store):
+    for stage in (_stage_canonicalize, _stage_validate, _stage_gate,
+                  _stage_lookup, _stage_plan_and_execute, _stage_store):
         stage(tenant, states)
     return [_finalize(tenant, s) for s in states]
 
 
 def _stage_canonicalize(tenant: Tenant, states: list[RequestState]) -> None:
+    _canonicalize_nl(tenant, [s for s in states if s.origin == "nl"])
     for s in states:
+        if s.origin == "nl":
+            continue
         t0 = time.perf_counter()
         try:
             s.sig = tenant.sql_canon.canonicalize(s.req.sql, scope=s.req.scope)
         except (UnsupportedQuery, SQLSyntaxError, CanonicalizationError, KeyError) as e:
             s.add_ms("canonicalize", (time.perf_counter() - t0) * 1e3)
-            s.bypass(str(e))  # raw SQL bypasses still run on the backend
+            s.bypass(str(e), "raw")  # raw SQL bypasses still run on the backend
             continue
         s.add_ms("canonicalize", (time.perf_counter() - t0) * 1e3)
         s.provenance.append("canonicalize:sql")
+
+
+def _canonicalize_nl(tenant: Tenant, states: list[RequestState]) -> None:
+    if not states:
+        return
+    if tenant.nl is None:
+        for s in states:
+            s.add_ms("canonicalize", 0.0)
+            s.bypass("no NL canonicalizer configured")
+        return
+    # group by the `now` anchor so each group can share one batched model call
+    groups: dict[Optional[str], list[RequestState]] = {}
+    for s in states:
+        groups.setdefault(s.req.now.isoformat() if s.req.now else None, []).append(s)
+    batch_fn = getattr(tenant.nl, "canonicalize_batch", None)
+    for group in groups.values():
+        now = group[0].req.now
+        t0 = time.perf_counter()
+        if batch_fn is not None and len(group) > 1:
+            results = batch_fn([s.req.nl for s in group], now)
+            tag = "canonicalize:nl_batched"
+        else:
+            results = [tenant.nl.canonicalize(s.req.nl, now) for s in group]
+            tag = "canonicalize:nl"
+        ms = (time.perf_counter() - t0) * 1e3 / len(group)
+        for s, res in zip(group, results):
+            s.add_ms("canonicalize", ms)
+            s.nl_res = res
+            s.confidence = res.confidence
+            sig = res.signature
+            if sig is not None and s.req.scope is not None:
+                sig = sig.replace(scope=s.req.scope)
+            if sig is None:
+                tenant.stats.bump(nl_gated=1)
+                s.bypass(res.error or "canonicalization failed")
+                continue
+            s.sig = sig
+            s.provenance.append(tag)
 
 
 def _stage_validate(tenant: Tenant, states: list[RequestState]) -> None:
@@ -182,7 +263,29 @@ def _stage_validate(tenant: Tenant, states: list[RequestState]) -> None:
         if v:
             s.provenance.append("validate:ok")
             continue
-        s.bypass("; ".join(v.reasons))
+        reason = "; ".join(v.reasons)
+        if s.origin == "nl":
+            tenant.stats.bump(nl_gated=1)
+            s.bypass(reason)  # invalid NL signature: nothing safe to execute
+        else:
+            s.bypass(reason, "raw")
+
+
+def _stage_gate(tenant: Tenant, states: list[RequestState]) -> None:
+    for s in states:
+        if not s.pending or s.origin != "nl":
+            continue
+        t0 = time.perf_counter()
+        gate = gate_nl(tenant.policy, s.req.nl, s.nl_res, s.req.now)
+        s.add_ms("gate", (time.perf_counter() - t0) * 1e3)
+        if not gate:
+            tenant.stats.bump(nl_gated=1)
+            # the signature is schema-valid: the bypass still executes it,
+            # it just never touches the cache (§3.5)
+            s.bypass("; ".join(gate.reasons), "sig")
+            continue
+        s.provenance.append("gate:ok")
+        s.store = not tenant.policy.sql_seeded_only
 
 
 def _stage_lookup(tenant: Tenant, states: list[RequestState]) -> None:
@@ -190,8 +293,13 @@ def _stage_lookup(tenant: Tenant, states: list[RequestState]) -> None:
         if not s.pending:
             continue
         t0 = time.perf_counter()
-        lr: LookupResult = tenant.cache.lookup(s.sig, request_origin="sql")
+        lr: LookupResult = tenant.cache.lookup(s.sig, request_origin=s.origin)
         s.add_ms("lookup", (time.perf_counter() - t0) * 1e3)
+        if lr.status != "miss" and s.origin == "nl" \
+                and tenant.policy.verify_time_window and lr.source_key is not None:
+            src = tenant.cache.entry(lr.source_key)
+            if src is not None and not verify_hit_time_window(s.sig, src.signature):
+                lr = LookupResult("miss", None)  # fail safe: treat as a miss
         s.provenance.append(f"lookup:{lr.status}")
         if lr.status != "miss":
             s.status = lr.status
@@ -206,7 +314,8 @@ def _stage_lookup(tenant: Tenant, states: list[RequestState]) -> None:
 def _stage_plan_and_execute(tenant: Tenant, states: list[RequestState]) -> None:
     """Dedup the batch's misses by signature key and execute the unique
     ones: one shared ``execute_batch`` scan when there are several, a
-    single ``execute`` otherwise.  Bypassed requests run their raw SQL."""
+    single ``execute`` otherwise.  Bypassed requests run their raw SQL or
+    their gated signature, or nothing."""
     misses: dict[str, list[RequestState]] = {}
     for s in states:
         if not s.pending:
@@ -251,26 +360,29 @@ def _stage_plan_and_execute(tenant: Tenant, states: list[RequestState]) -> None:
             s.batched = lead.batched
 
     for s in states:
-        if s.status != "bypass":
+        if s.status != "bypass" or s.bypass_exec is None:
             continue
         t0 = time.perf_counter()
-        s.table = tenant.backend.execute_raw(s.req.sql)
+        if s.bypass_exec == "raw":
+            s.table = tenant.backend.execute_raw(s.req.sql)
+        else:
+            s.table = tenant.backend.execute(s.sig)
         s.add_ms("execute", (time.perf_counter() - t0) * 1e3)
         tenant.stats.bump(backend_executions=1)
-        s.provenance.append("execute:bypass_raw")
+        s.provenance.append(f"execute:bypass_{s.bypass_exec}")
 
 
 def _stage_store(tenant: Tenant, states: list[RequestState]) -> None:
     stored: set[str] = set()  # one put per key per batch
     for s in states:
-        if s.status != "miss" or s.table is None:
+        if s.status != "miss" or not s.store or s.table is None:
             continue
         key = s.sig.key()
         if key in stored:
             continue
         stored.add(key)
         t0 = time.perf_counter()
-        tenant.cache.put(s.sig, s.table, origin="sql",
+        tenant.cache.put(s.sig, s.table, origin=s.origin,
                          snapshot_id=tenant.snapshot_id,
                          # recompute-cost estimate for the cost-benefit
                          # eviction policy: what this miss paid to execute
@@ -286,8 +398,11 @@ def _finalize(tenant: Tenant, s: RequestState) -> QueryResult:
     return QueryResult(
         status=s.status or "bypass",
         table=s.table,
-        signature=s.sig,
+        signature=s.sig if s.sig is not None else (
+            s.nl_res.signature if s.nl_res is not None else None),
+        origin=s.origin,
         bypass_reason=s.bypass_reason,
+        confidence=s.confidence,
         source_origin=s.source_origin,
         source_snapshot=s.source_snapshot,
         provenance=tuple(s.provenance),

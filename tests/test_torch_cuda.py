@@ -5,13 +5,19 @@ package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Sums use atomics, whose order changes from run to run: rtol 1e-4.
+Sums use atomics, whose order changes from run to run: rtol 1e-4.  The
+attention kernels are held to their plain versions at the tolerances of
+``tests/test_kernels.py``: float32 2e-3, bfloat16 5e-2.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.sql_canon import SQLCanonicalizer
+from repro_torch.kernels.decode_attn import kernel as dkernel
+from repro_torch.kernels.decode_attn import ref as dref
+from repro_torch.kernels.flash_attn import kernel as fkernel
+from repro_torch.kernels.flash_attn import ref as fref
 from repro_torch.kernels.seg_agg import kernel as tkernel
 from repro_torch.kernels.seg_agg import ref as tref
 from repro_torch.olap.executor import OlapExecutor
@@ -103,3 +109,69 @@ def test_executor_on_cuda_matches_oracle(cuda_device):
         assert ex.execute(sig).equals(want, ordered=bool(sig.order_by))
         assert batched.equals(want, ordered=bool(sig.order_by))
     assert tkernel.kernel_launches()["seg_agg_fused"] > 0
+
+
+ATTN_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+
+
+def _attn_close(got, want, dtype):
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", [
+    (2, 4, 2, 256, 64), (1, 8, 1, 128, 128), (1, 4, 4, 100, 64), (2, 2, 2, 64, 128),
+    (3, 12, 4, 77, 64), (1, 3, 1, 1, 64), (1, 6, 2, 1000, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda_device, b, h, hkv, s, dh, causal, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(b * 1000 + s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
+    fkernel.LAUNCHES["flash_attn"] = 0
+    got = fkernel.flash_attention_cuda(q, k, v, causal=causal)
+    assert fkernel.LAUNCHES["flash_attn"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _attn_close(got, fref.mha_ref(q, k, v, causal=causal), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", [
+    (2, 8, 2, 512, 64), (1, 4, 1, 300, 128), (3, 4, 4, 128, 64), (4, 12, 4, 4096, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_plain(cuda_device, b, h, hkv, s, dh, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(b * 1000 + s)
+    q = torch.randn((b, h, dh), generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn((b, hkv, s, dh), generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    pos = torch.tensor([1, 77, s - 1, s][:b], dtype=torch.int32, device=cuda_device)
+    dkernel.LAUNCHES["decode_attn"] = 0
+    got = dkernel.decode_attention_cuda(q, k, v, pos)
+    assert dkernel.LAUNCHES["decode_attn"] == 1
+    _attn_close(got, dref.decode_attention_ref(q, k, v, pos), dtype)
+    # slots at or past pos are never read: changing them changes nothing
+    k2, v2 = k.clone(), v.clone()
+    for i, p in enumerate(pos.tolist()):
+        k2[i, :, p:] = 999.0
+        v2[i, :, p:] = float("nan")
+    assert torch.equal(dkernel.decode_attention_cuda(q, k2, v2, pos), got)
+    torch.cuda.synchronize()
+
+
+def test_attention_wrappers_refuse_other_head_dims(cuda_device):
+    q = torch.zeros((1, 4, 8, 32), device=cuda_device)
+    kv = torch.zeros((1, 2, 8, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 32"):
+        fkernel.flash_attention_cuda(q, kv, kv)
+    qd = torch.zeros((1, 4, 96), device=cuda_device)
+    kd = torch.zeros((1, 2, 16, 96), device=cuda_device)
+    pos = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 96"):
+        dkernel.decode_attention_cuda(qd, kd, kd, pos)
+    with pytest.raises(TypeError):
+        fkernel.flash_attention_cuda(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError):
+        dkernel.decode_attention_cuda(torch.zeros((1, 4, 64), device=cuda_device),
+                                      torch.zeros((1, 3, 16, 64), device=cuda_device),
+                                      torch.zeros((1, 3, 16, 64), device=cuda_device), pos)

@@ -71,6 +71,7 @@ def test_pipeline_matches_jax_service(ssb_small, streams):
 
 
 def test_serve_main_on_cpu(capsys):
-    serve.main(["--n-fact", "3000", "--queries", "42", "--device", "cpu"])
+    serve.main(["--n-fact", "3000", "--queries", "42", "--device", "cpu",
+                "--simulated-llm"])
     out = capsys.readouterr().out
     assert '"requests": 242' in out and "hit_rate" in out
