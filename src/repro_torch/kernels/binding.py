@@ -1,12 +1,30 @@
 """What the ctypes-bound kernel wrappers share: dispatch by device, input
-checks, and the launch-error check."""
+checks, the launch-error check, and the one registry of kernel launches."""
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 PTR, LL, INT, FLOAT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def count_launch(kernel: str) -> None:
+    """Called by a wrapper once per launch of its kernel, and nowhere else."""
+    _LAUNCHES[kernel] += 1
+
+
+def launch_counts() -> collections.Counter:
+    """Launches per kernel name since the last reset (0 for a kernel not
+    launched)."""
+    return collections.Counter(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.clear()
 
 
 def on_cuda(what: str, *tensors) -> bool:

@@ -8,9 +8,9 @@ int32 -> (B, H, Dh) in q's dtype.  The G = H / Hkv query heads of a group
 read each cache tile once; nothing at or past pos is read.  The kernel is
 built for head dims 64 and 128 and groups of up to ``MAX_GROUP`` heads; any
 other raises ``ValueError``.  The wrapper checks its inputs, allocates the
-output, launches on the current stream, raises on a launch error and adds
-one to ``LAUNCHES["decode_attn"]`` per launch.  The plain version is
-``ref.decode_attention_ref``.
+output, launches on the current stream, raises on a launch error and
+counts each launch as ``decode_attn`` in ``binding.launch_counts``.  The
+plain version is ``ref.decode_attention_ref``.
 """
 from __future__ import annotations
 
@@ -18,14 +18,12 @@ import ctypes
 
 import torch
 
-from ..binding import FLOAT, INT, PTR, check_tensor, raise_on
+from ..binding import FLOAT, INT, PTR, check_tensor, count_launch, raise_on
 from ..build import load
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 128  # the group's q and accumulator are staged in shared memory
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-LAUNCHES = {"decode_attn": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,5 +69,5 @@ def decode_attention_cuda(q, k, v, pos, scale: float | None = None):
             out.data_ptr(), b, h, hkv, s, dh,
             dh ** -0.5 if scale is None else float(scale), DTYPES[q.dtype], stream)
     raise_on(rc, lib.decode_attn_error_string, "decode_attn")
-    LAUNCHES["decode_attn"] += 1
+    count_launch("decode_attn")
     return out

@@ -6,8 +6,9 @@ k and v (B, Hkv, S, Dh), float32 or bfloat16 -> (B, H, S, Dh) in q's dtype,
 blockwise online softmax in f32, K tiles above the diagonal skipped.  The
 kernel is built for head dims 64 and 128; any other raises ``ValueError``.
 The wrapper checks its inputs, allocates the output, launches on the
-current stream, raises on a launch error and adds one to
-``LAUNCHES["flash_attn"]`` per launch.  The plain version is ``ref.mha_ref``.
+current stream, raises on a launch error and counts each launch as
+``flash_attn`` in ``binding.launch_counts``.  The plain version is
+``ref.mha_ref``.
 """
 from __future__ import annotations
 
@@ -15,13 +16,11 @@ import ctypes
 
 import torch
 
-from ..binding import FLOAT, INT, PTR, check_tensor, raise_on
+from ..binding import FLOAT, INT, PTR, check_tensor, count_launch, raise_on
 from ..build import load
 
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-LAUNCHES = {"flash_attn": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -63,5 +62,5 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale: float | None = Non
             s, dh, int(bool(causal)), dh ** -0.5 if scale is None else float(scale),
             DTYPES[q.dtype], stream)
     raise_on(rc, lib.flash_attn_error_string, "flash_attn")
-    LAUNCHES["flash_attn"] += 1
+    count_launch("flash_attn")
     return out

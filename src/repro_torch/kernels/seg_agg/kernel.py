@@ -13,9 +13,9 @@ Two kernels, each replacing one Pallas TPU kernel of the JAX package
 
 Both are bound by the bytes they read (see the note in the source).  The
 wrappers check device, dtype, shape and contiguity, allocate the output,
-launch on the current stream and raise on a launch error; each adds one to
-its count in ``LAUNCHES`` per kernel launch.  Their plain PyTorch versions
-are in ``ref.py``.
+launch on the current stream and raise on a launch error; each counts
+every kernel launch, as ``seg_agg`` or ``seg_agg_fused``, in
+``binding.launch_counts``.  Their plain PyTorch versions are in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -23,24 +23,13 @@ import ctypes
 
 import torch
 
-from ..binding import INT as _INT, LL as _LL, PTR as _PTR, check_tensor, raise_on
+from ..binding import (INT as _INT, LL as _LL, PTR as _PTR, check_tensor, count_launch,
+                       raise_on)
 from ..build import load
 
 OPS = {"sum": 0, "min": 1, "max": 2}
 MAX_SIGNATURES = 64  # one launch evaluates at most this many signatures
 MAX_BOUNDS_BYTES = 32 * 1024  # (S, P, K, 2) bounds staged in shared memory
-
-LAUNCHES = {"seg_agg": 0, "seg_agg_fused": 0}
-
-
-def kernel_launches() -> dict[str, int]:
-    """Kernel launches per kernel since the last reset."""
-    return dict(LAUNCHES)
-
-
-def reset_kernel_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -97,7 +86,7 @@ def seg_agg_cuda(values, ids, mask, num_groups: int, op: str = "sum",
                                 mask.data_ptr(), out.data_ptr(), n, m,
                                 num_groups, code, int(bool(select)), stream)
     _raise_on(lib, rc, "seg_agg")
-    LAUNCHES["seg_agg"] += 1
+    count_launch("seg_agg")
     return out
 
 
@@ -140,5 +129,5 @@ def seg_agg_fused_cuda(values, ids, pred_cols, bounds, num_groups: int,
                 bounds[s0:s1].data_ptr(), out[s0:s1].data_ptr(), n, m, p, k,
                 s1 - s0, num_groups, code, stream)
             _raise_on(lib, rc, "seg_agg_fused")
-            LAUNCHES["seg_agg_fused"] += 1
+            count_launch("seg_agg_fused")
     return out

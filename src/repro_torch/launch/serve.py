@@ -31,9 +31,7 @@ import json
 from ..core.cache import SemanticCache
 from ..core.nl_canon import MemoizedNL, SimulatedLLM
 from ..core.safety import SafetyPolicy
-from ..kernels.decode_attn.kernel import LAUNCHES as DECODE_LAUNCHES
-from ..kernels.flash_attn.kernel import LAUNCHES as FLASH_LAUNCHES
-from ..kernels.seg_agg.kernel import kernel_launches
+from ..kernels.binding import launch_counts
 from ..olap.executor import OlapExecutor
 from ..service.pipeline import QueryRequest, QueryResult, Tenant, run_pipeline
 from ..workloads import hierarchical, ssb
@@ -121,7 +119,7 @@ def summary(tenant: Tenant, results: list[QueryResult]) -> dict:
         "deduped_misses": tenant.stats.deduped_misses,
         "backend_executions": b.executions,
         "rows_scanned": b.rows_scanned,
-        "kernel_launches": {**kernel_launches(), **FLASH_LAUNCHES, **DECODE_LAUNCHES},
+        "kernel_launches": dict(launch_counts()),
     }
 
 

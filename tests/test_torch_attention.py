@@ -16,6 +16,7 @@ from repro.kernels.decode_attn.kernel import decode_attention_pallas
 from repro.kernels.decode_attn.ref import decode_attention_ref as jdecode_ref
 from repro.kernels.flash_attn.kernel import flash_attention_pallas
 from repro.kernels.flash_attn.ref import mha_ref as jmha_ref
+from repro_torch.kernels.binding import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attn import kernel as dkernel
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.kernels.flash_attn import kernel as fkernel
@@ -33,9 +34,9 @@ def test_flash_attention_matches_jax(b, h, hkv, s, dh, causal):
     q = rng.normal(size=(b, h, s, dh)).astype(np.float32)
     k = rng.normal(size=(b, hkv, s, dh)).astype(np.float32)
     v = rng.normal(size=(b, hkv, s, dh)).astype(np.float32)
-    fkernel.LAUNCHES["flash_attn"] = 0
+    reset_launch_counts()
     got = flash_attention(T(q), T(k), T(v), causal=causal).numpy()
-    assert fkernel.LAUNCHES["flash_attn"] == 0  # CPU tensors take the plain version
+    assert launch_counts()["flash_attn"] == 0  # CPU tensors take the plain version
     want = np.asarray(jmha_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     pallas = np.asarray(flash_attention_pallas(
@@ -73,9 +74,9 @@ def test_decode_attention_matches_jax(b, h, hkv, s, dh, tk, dtype):
     jd, td, tol = ((jnp.float32, torch.float32, 2e-3) if dtype == "float32"
                    else (jnp.bfloat16, torch.bfloat16, 5e-2))
     jin = [jnp.asarray(a, jd) for a in (q, k, v)] + [jnp.asarray(pos)]
-    dkernel.LAUNCHES["decode_attn"] = 0
+    reset_launch_counts()
     got = decode_attention(*(T(a).to(td) for a in (q, k, v)), T(pos))
-    assert dkernel.LAUNCHES["decode_attn"] == 0
+    assert launch_counts()["decode_attn"] == 0
     assert got.dtype == td
     got = got.float().numpy()
     # the plain version repeats the oracle's arithmetic, casts included
@@ -100,6 +101,21 @@ def test_decode_attention_pos_mask_exact():
     v2[:, :, 10:] = -999.0
     torch.testing.assert_close(decode_attention(q, k2, v2, pos), out1,
                                rtol=1e-6, atol=1e-6)
+
+
+def test_launch_registry_counts_snapshots_and_resets():
+    """The one registry every kernel wrapper counts its launches in."""
+    from repro_torch.kernels.binding import count_launch
+
+    reset_launch_counts()
+    count_launch("flash_attn")
+    count_launch("flash_attn")
+    snap = launch_counts()
+    count_launch("decode_attn")
+    assert snap["flash_attn"] == 2 and snap["decode_attn"] == 0  # a copy
+    assert launch_counts()["decode_attn"] == 1 and launch_counts()["seg_agg"] == 0
+    reset_launch_counts()
+    assert not any(launch_counts().values())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

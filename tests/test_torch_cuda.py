@@ -6,14 +6,21 @@ package, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Sums use atomics, whose order changes from run to run: rtol 1e-4.  The
-attention kernels are held to their plain versions at the tolerances of
-``tests/test_kernels.py``: float32 2e-3, bfloat16 5e-2.
+attention kernels are held to their plain versions evaluated on the
+inputs' exact float32 values (in bfloat16 ``decode_attention_ref`` would
+repeat the JAX oracle's casts, which the kernels do not make): float32 rtol
+= atol = 2e-3 (the tolerance of ``tests/test_kernels.py``); bfloat16 rtol
+4e-3, atol 5e-4, since a bfloat16 kernel does the float32 arithmetic and
+rounds once at the output (at most 2**-9 relative), while the atol stays
+far below the 0.02-0.04 outputs of long rows, where a lost key tile would
+show.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.sql_canon import SQLCanonicalizer
+from repro_torch.kernels.binding import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attn import kernel as dkernel
 from repro_torch.kernels.decode_attn import ref as dref
 from repro_torch.kernels.flash_attn import kernel as fkernel
@@ -71,10 +78,10 @@ def test_kernels_match_plain(cuda_device, n, m, g, p, k, s, op):
     mask = (rng.random(n) > 0.3).astype(np.float32)
     dev = cuda_device
     v, i, pr, b, mk = (T(a).to(dev) for a in (vals, ids, pred, bounds, mask))
-    tkernel.reset_kernel_launches()
+    reset_launch_counts()
     _close(tkernel.seg_agg_fused_cuda(v, i, pr, b, g, op),
            tref.seg_agg_batch_ref(v, i, pr, b, g, op))
-    assert tkernel.kernel_launches()["seg_agg_fused"] == -(-s // tkernel.MAX_SIGNATURES)
+    assert launch_counts()["seg_agg_fused"] == -(-s // tkernel.MAX_SIGNATURES)
     for select, plain in ((True, tref.seg_agg_masked_ref), (False, tref.seg_agg_ref)):
         _close(tkernel.seg_agg_cuda(v, i, mk, g, op, select=select),
                plain(v, i, mk, g, op))
@@ -103,37 +110,37 @@ def test_executor_on_cuda_matches_oracle(cuda_device):
     ex = OlapExecutor(wl.dataset, device=cuda_device)
     oracle = OlapExecutor(wl.dataset, impl="numpy")
     sigs = [canon.canonicalize(i.sql) for i in wl.intents]
-    tkernel.reset_kernel_launches()
+    reset_launch_counts()
     for sig, batched in zip(sigs, ex.execute_batch(sigs)):
         want = oracle.execute(sig)
         assert ex.execute(sig).equals(want, ordered=bool(sig.order_by))
         assert batched.equals(want, ordered=bool(sig.order_by))
-    assert tkernel.kernel_launches()["seg_agg_fused"] > 0
+    assert launch_counts()["seg_agg_fused"] > 0
 
 
-ATTN_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+ATTN_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (4e-3, 5e-4)}  # (rtol, atol)
 
 
 def _attn_close(got, want, dtype):
-    tol = ATTN_TOL[dtype]
+    rtol, atol = ATTN_TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
-                               rtol=tol, atol=tol)
+                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("b,h,hkv,s,dh", [
     (2, 4, 2, 256, 64), (1, 8, 1, 128, 128), (1, 4, 4, 100, 64), (2, 2, 2, 64, 128),
-    (3, 12, 4, 77, 64), (1, 3, 1, 1, 64), (1, 6, 2, 1000, 128)])
+    (3, 12, 4, 77, 64), (8, 12, 4, 77, 64), (1, 3, 1, 1, 64), (1, 6, 2, 1000, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda_device, b, h, hkv, s, dh, causal, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(b * 1000 + s)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
                for shape in ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
-    fkernel.LAUNCHES["flash_attn"] = 0
+    reset_launch_counts()
     got = fkernel.flash_attention_cuda(q, k, v, causal=causal)
-    assert fkernel.LAUNCHES["flash_attn"] == 1
+    assert launch_counts()["flash_attn"] == 1
     assert got.dtype == dtype and got.shape == q.shape
-    _attn_close(got, fref.mha_ref(q, k, v, causal=causal), dtype)
+    _attn_close(got, fref.mha_ref(q.float(), k.float(), v.float(), causal=causal), dtype)
     torch.cuda.synchronize()
 
 
@@ -146,10 +153,10 @@ def test_decode_attention_matches_plain(cuda_device, b, h, hkv, s, dh, dtype):
     k, v = (torch.randn((b, hkv, s, dh), generator=gen, device=cuda_device).to(dtype)
             for _ in range(2))
     pos = torch.tensor([1, 77, s - 1, s][:b], dtype=torch.int32, device=cuda_device)
-    dkernel.LAUNCHES["decode_attn"] = 0
+    reset_launch_counts()
     got = dkernel.decode_attention_cuda(q, k, v, pos)
-    assert dkernel.LAUNCHES["decode_attn"] == 1
-    _attn_close(got, dref.decode_attention_ref(q, k, v, pos), dtype)
+    assert launch_counts()["decode_attn"] == 1
+    _attn_close(got, dref.decode_attention_ref(q.float(), k.float(), v.float(), pos), dtype)
     # slots at or past pos are never read: changing them changes nothing
     k2, v2 = k.clone(), v.clone()
     for i, p in enumerate(pos.tolist()):

@@ -42,7 +42,6 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.olap.columnar import from_reference
 from repro_torch.olap.executor import OlapExecutor
 from repro_torch.serving import engine, json_decode
-from repro_torch.serving.kvcache import CacheState
 from repro_torch.service.pipeline import QueryRequest, Tenant, run_pipeline
 from repro_torch.training.tokenizer import build_tokenizer
 from repro_torch.workloads import ssb
@@ -188,16 +187,25 @@ def test_serve_main_with_simulated_llm_on_cpu(capsys):
     assert '"requests": 262' in out and '"nl_requests": 20' in out
 
 
-def test_cache_state_fresh_and_reset_rows():
+def test_engine_caches_are_preallocated_and_written_in_place():
+    """The engine's KV state: prefill preallocates (L, B, Hkv, max_len, Dh)
+    caches and a (B,) int32 pos; each decode step writes its K/V at pos in
+    place and returns pos + 1."""
     cfg = dataclasses.replace(reduced("canonicalizer-100m"), dtype=torch.float32)
-    st = CacheState.fresh(cfg, batch=3, max_len=16, device="cpu")
-    k, v = st.caches["layers"]
-    assert k.shape == v.shape == (cfg.n_layers, 3, cfg.kv_heads, 16, cfg.hd)
-    assert st.pos.dtype == torch.int32 and not st.pos.any()
-    st.pos += 5
-    again = st.reset_rows([0, 2])
-    assert again.pos.tolist() == [0, 5, 0] and st.pos.tolist() == [5, 5, 5]
-    assert again.caches is st.caches
+    mod = cfg.build()
+    params = mod.init_params(cfg, 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (3, 5), generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        _, caches, pos = mod.prefill(cfg, params, tokens=tokens, cache_len=16)
+        k, v = caches["layers"]
+        assert k.shape == v.shape == (cfg.n_layers, 3, cfg.kv_heads, 16, cfg.hd)
+        assert pos.dtype == torch.int32 and pos.tolist() == [5, 5, 5]
+        assert k[:, :, :, :5].abs().sum() > 0 and not k[:, :, :, 5:].any()
+        _, again, pos = mod.decode_step(cfg, params, tokens[:, -1], caches, pos)
+    assert again["layers"][0] is k and again["layers"][1] is v
+    assert pos.tolist() == [6, 6, 6]
+    assert k[:, :, :, 5].abs().sum() > 0 and not k[:, :, :, 6:].any()
+    assert v[:, :, :, 5].abs().sum() > 0 and not v[:, :, :, 6:].any()
 
 
 def test_engine_and_launcher_default_to_cuda(monkeypatch, port_wl):
