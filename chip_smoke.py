@@ -21,10 +21,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
              the first, a middle and the last decode step's pos on a
              512-slot cache).  The plain versions run on the inputs' exact
              float32 values; tolerances (rtol, atol): float32 (2e-3, 2e-3),
-             bfloat16 (4e-3, 5e-4).  Times each kernel, its
-             plain version and, where one exists, one PyTorch library call
-             computing the same function, at the main path's shapes: device
-             time per call under ``torch.profiler``.
+             bfloat16 (4e-3, 5e-4).  ssd_scan: S in {1, 77, 100, 128, 300,
+             4096} over (N, P, H) in {(16, 16, 1), (64, 64, 3), (128, 64,
+             48), (128, 16, 3)}, dt small (0.001-0.1) and as large as
+             mamba2's init gives (up to 2), y with and without the final
+             state; against the sequential ``ssd_ref`` where S <= 300, else
+             ``ssd_chunked`` + ``ssd_final_state``; tolerances (rtol, atol)
+             float32 (1e-3, 1e-3), bfloat16 y (4e-3, 1e-3); NaN in the
+             storage past S changes nothing; again at the main path's
+             shapes (8 prompts, 48 heads, P 64, N 128, bf16 x).  Times each
+             kernel, its plain version and, where one exists, one PyTorch
+             library call computing the same function, at the main path's
+             shapes: device time per call under ``torch.profiler``.
 3. llm     — canonicalizer-100m at full width (12 layers, d_model 768, 12/4
              heads, head dim 64, d_ff 2048, vocab 8192), weights initialised
              from ``--seed``: (a) teacher forcing on the card, prefill
@@ -39,24 +47,43 @@ Phases, in order; any failed check raises and the script exits non-zero:
              (bfloat16 engine): every NLResult keeps the protocol, every
              served table matches the numpy oracle.  The attention kernels'
              launch counts are read from (c) alone.
-4. serve   — SSB at ``--n-fact`` rows (SF1's LINEORDER has 6,000,000)
+4. mamba2  — mamba2-780m at full width (48 layers, d_model 1536, d_inner
+             3072, 48 SSD heads of 64, state 128, vocab 50280), weights from
+             ``--seed``: (a) teacher forcing on the card: float32 at full
+             depth, prefill logits against ``forward`` (2e-2) and one
+             ``decode_step`` against ``forward`` over S+1 tokens (3e-2);
+             bfloat16 prefill at full depth (2e-2) and decode at depth 1
+             (3e-2), with the bfloat16 decode drift printed by depth (at
+             random init the bf16 model, JAX's too, amplifies rounding
+             layer by layer); (b) the float32 model on the CPU (plain SSD
+             scan) against the card, prefill and decode logits within 1e-3
+             at depth 12 and printed at every depth, the CPU's own spread at
+             full depth (one thread against its default), and the share of
+             identical greedy tokens; (c) 16 SSB NL requests in batches of 8 through a
+             tenant whose NL canonicalizer is ``serve.llm_canonicalizer``'s
+             ``MemoizedNL(CanonicalizerService(engine))`` over mamba2-780m
+             (bfloat16): the protocol kept, every table against the oracle,
+             one ssd_scan launch per layer and engine batch.  The ssd_scan
+             launch count is read from (c) alone.
+5. serve   — SSB at ``--n-fact`` rows (SF1's LINEORDER has 6,000,000)
              through the SQL pipeline and the semantic cache: the SSB SQL
              stream, the hierarchical drill stream, a 6-tile dashboard
              refresh (one shared scan) and one request whose filter needs
              the host-mask branch.  Every served table is checked against
              the numpy oracle; the seg_agg launch counts are read from this
              phase alone.  Prints per-stage p50/p95 of the request path.
-5. nl      — the SSB mixed stream (SQL and NL) through a fresh tenant whose
+6. nl      — the SSB mixed stream (SQL and NL) through a fresh tenant whose
              NL canonicalizer is ``MemoizedNL(SimulatedLLM)``, on the same
              dataset: every served table against the numpy oracle, no false
              hit, at least one NL hit.
-6. profile — a fresh dataset and tenant replay the first 64 SSB requests
+7. profile — a fresh dataset and tenant replay the first 64 SSB requests
              under ``torch.profiler`` (device busy share of a cold start, the
              kernels and copies that took the most device time), and again
              under ``cProfile`` (host functions by own time); then one more
-             engine batch of 8 NL questions under ``torch.profiler``: device
-             busy share of prefill + decode loop, device ms per decode step
-             against host ms per step, and the top device ops.
+             engine batch of 8 NL questions under ``torch.profiler``, for
+             each of the two engines: device busy share of prefill + decode
+             loop, device ms per decode step against host ms per step, and
+             the top device ops.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Exits
@@ -387,6 +414,110 @@ def attention_times(dev, gen, plen: int, steps: int, iters: int) -> dict:
     return {k: with_bound(t, BF16_OPS_PER_S) for k, t in out.items()}
 
 
+# (rtol, atol) of the SSD scan against its plain version on the inputs' exact
+# float32 values.  float32: tighter than tests/test_kernels.py's 5e-3 (chunks
+# of 32 against the sequential scan change only the order of f32 sums; on an
+# H100 the sweep's largest error reads 0.004, on outputs in the hundreds).
+# bfloat16 y: one output rounding more (at most 2**-8 relative); the state is
+# float32 in both.
+SSD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (4e-3, 1e-3)}
+
+
+def _ssd_inputs(gen, dev, b, s, h, p, n, dtype, dt_hi):
+    """dt in [0.001, 0.001 + dt_hi): 0.1 as tests/test_kernels.py, 2.0 as
+    large as mamba2's init gives; A in (-8, -1) as mamba2's a_log."""
+    import torch
+
+    x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dtype)
+    dt = 0.001 + torch.rand(b, s, h, generator=gen, device=dev) * dt_hi
+    A = -1.0 - 7.0 * torch.rand(h, generator=gen, device=dev)
+    Bm, Cm = (torch.randn(b, s, n, generator=gen, device=dev) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_check(x, dt, A, Bm, Cm, what: str) -> float:
+    """The kernel with and without the final state against the plain
+    version; returns the max abs error of y and the state."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
+
+    y, state = SK.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True)
+    if not torch.equal(SK.ssd_scan_cuda(x, dt, A, Bm, Cm), y):
+        raise AssertionError(f"{what}: y differs with and without the state")
+    if x.shape[1] <= 300:
+        want_y, want_state = SR.ssd_ref(x.float(), dt, A, Bm, Cm)
+    else:
+        want_y = SR.ssd_chunked(x.float(), dt, A, Bm, Cm)
+        want_state = SR.ssd_final_state(x.float(), dt, A, Bm)
+    name = str(x.dtype).removeprefix("torch.")
+    return max(compare(finite(y, what), want_y, f"{what} y", *SSD_TOL[name]),
+               compare(finite(state, what), want_state, f"{what} state",
+                       *SSD_TOL["float32"]))
+
+
+def ssd_checks(dev, gen) -> dict:
+    """Max abs error of the SSD-scan kernel against its plain version over
+    the sweep, by dtype, and the check that nothing past S is read."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as SK
+
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for s in (1, 77, 100, 128, 300, 4096):
+            for n, p, h in ((16, 16, 1), (64, 64, 3), (128, 64, 48), (128, 16, 3)):
+                for dt_hi in (0.1, 2.0):
+                    b = 1 if s == 4096 else 2
+                    args = _ssd_inputs(gen, dev, b, s, h, p, n, dtype, dt_hi)
+                    what = f"ssd {name} S={s} N={n} P={p} H={h} dt<{dt_hi}"
+                    errs[name] = max(errs[name], _ssd_check(*args, what))
+    # with B = 1 a prefix of S rows is contiguous: NaN in the storage past S
+    s = 77
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, 1, 128, 48, 64, 128, torch.bfloat16, 2.0)
+    exact = [t[:, :s].clone() for t in (x, dt, Bm, Cm)]
+    for t in (x, dt, Bm, Cm):
+        t[:, s:] = float("nan")
+    got = SK.ssd_scan_cuda(x[:, :s], dt[:, :s], A, Bm[:, :s], Cm[:, :s], return_state=True)
+    want = SK.ssd_scan_cuda(exact[0], exact[1], A, exact[2], exact[3], return_state=True)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("ssd: NaN past S changed the output")
+    torch.cuda.synchronize()
+    return errs
+
+
+def ssd_times(dev, gen, plen: int, iters: int) -> dict:
+    """The SSD-scan kernel against its plain version, then kernel and plain
+    times, at the main path's shapes: mamba2-780m's prefill of the first
+    engine batch (8 prompts padded to ``plen`` tokens, 48 heads, P 64, N
+    128, bf16 x, the final state written), dt as large as its init gives."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
+
+    b, s, h, p, n = 8, plen, 48, 64, 128
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, b, s, h, p, n, torch.bfloat16, 2.0)
+    shape = f"x ({b},{s},{h},{p}) bf16 dt ({b},{s},{h}) B/C ({b},{s},{n}), state out"
+    chunk = min(128, s)  # the Pallas kernel's chunk, for its operation count
+    n_chunks = -(-s // chunk)
+    t = {
+        "max_abs_err": _ssd_check(x, dt, A, Bm, Cm, f"ssd main path {shape}"),
+        **timed(lambda: SK.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True),
+                lambda: (SR.ssd_chunked(x, dt, A, Bm, Cm),
+                         SR.ssd_final_state(x, dt, A, Bm)), None, iters),
+        # x and y in bf16, dt, A, B, C and the final state in f32, each once
+        "bytes": 2 * 2 * b * s * h * p + 4 * (b * s * h + h + 2 * b * s * n + b * h * p * n),
+        # the Pallas kernel's products per (batch, head, chunk): C Bᵀ, the
+        # masked (L, L) product with x, C against the state, the state update
+        "ops": b * h * n_chunks * (2 * chunk * chunk * (n + p) + 4 * chunk * n * p),
+        "shape": shape,
+    }
+    return {"ssd_scan": with_bound(t, F32_OPS_PER_S)}
+
+
 # ---------------------------------------------------------------- oracle
 
 
@@ -543,6 +674,157 @@ def llm_phase(wl, oracle, seed: int) -> dict:
         "model_ms_per_step": engine.model_s / max(engine.steps, 1) * 1e3,
         "tokens_per_s": engine.steps * NL_BATCH / wall,
         "rows_with_output": generated,
+        **oracle.check(results),
+    }
+    return {"launches": launches, "summary": out, "engine": engine}
+
+
+# ---------------------------------------------------------------- mamba2
+
+
+def _teacher_forcing(mod, cfg, params, tokens, depth: int):
+    """The first ``depth`` layers of the model: (forward over S, prefill
+    logits, one decode step's logits, forward over S+1), the decode step fed
+    the last token again."""
+    import torch
+
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    params = {**params, "layers": params["layers"][:depth]}
+    nxt = tokens[:, -1]
+    with torch.inference_mode():
+        full = mod.forward(cfg, params, tokens=tokens)
+        logits, caches, pos = mod.prefill(cfg, params, tokens=tokens)
+        step = mod.decode_step(cfg, params, nxt, caches, pos)[0]
+        full2 = mod.forward(cfg, params, tokens=torch.cat([tokens, nxt[:, None]], dim=1))
+    for what, t in (("forward", full), ("prefill", logits), ("decode", step),
+                    ("forward S+1", full2)):
+        finite(t, f"{cfg.name} depth {depth} {cfg.dtype} {what}")
+    return full, logits, step, full2
+
+
+def mamba2_phase(wl, oracle, seed: int) -> dict:
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import mamba2
+    from repro_torch.service.pipeline import QueryRequest, run_pipeline
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training.tokenizer import build_tokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get("mamba2-780m")
+    out: dict = {"config": {k: getattr(cfg, k) for k in (
+        "n_layers", "d_model", "d_inner", "ssm_heads", "ssm_head_dim", "ssm_state",
+        "conv_kernel", "vocab")}}
+    gen = torch.Generator().manual_seed(seed)
+    b, s = 4, 64
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen).cuda()
+    depths = (1, 2, 4, 12, cfg.n_layers)
+
+    # (a) teacher forcing on the card: prefill (SSD-scan kernel in every
+    # layer) against forward, one decode step (plain SSD step from the
+    # kernel's final state) against forward over S+1
+    tf = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        name = str(dtype).removeprefix("torch.")
+        params = mamba2.init_params(c, seed, device="cuda")
+        # float32 decode at full depth; bfloat16 decode at depth 1: past it
+        # the random-init model's own amplification of bf16 rounding exceeds
+        # 3e-2, JAX's model as much as this one (the drift is printed)
+        dec_depth = cfg.n_layers if dtype == torch.float32 else 1
+        res = {"decode_drift_by_depth": {}}
+        for depth in depths:  # the last is full depth
+            full, logits, step, full2 = _teacher_forcing(mamba2, c, params, tokens, depth)
+            res["decode_drift_by_depth"][depth] = float((step - full2[:, -1]).abs().max())
+            if depth == dec_depth:
+                res[f"decode_depth_{depth}"] = compare(
+                    step, full2[:, -1], f"mamba2 decode {name} depth {depth}", 3e-2, 3e-2)
+        res["prefill"] = compare(logits, full[:, -1], f"mamba2 prefill {name}", 2e-2, 2e-2)
+        res["logits_std"], res["logits_absmax"] = float(full.std()), float(full.abs().max())
+        tf[name] = res
+        if dtype == torch.float32:
+            p_card = params
+        del params, full, full2
+    out["teacher_forcing_max_abs_err"] = tf
+
+    # (b) the same float32 model on the CPU: plain SSD scan, same logits,
+    # held to 1e-3 at depth 12 and read at every depth: the model amplifies
+    # f32 rounding layer by layer, and at full depth the CPU with one thread
+    # instead of its default differs from itself by as much (read below)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p_cpu = mamba2.to_device(p_card, "cpu")
+    by_depth = {}
+    for depth in depths:
+        c = dataclasses.replace(c32, n_layers=depth)
+        runs = []
+        for p, t in ((p_card, tokens), (p_cpu, tokens.cpu())):
+            p = {**p, "layers": p["layers"][:depth]}
+            with torch.inference_mode():
+                logits, caches, pos = mamba2.prefill(c, p, tokens=t)
+                step = mamba2.decode_step(c, p, t[:, -1], caches, pos)[0]
+            runs.append((finite(logits, "prefill"), finite(step, "decode")))
+        (card, card_step), (host, host_step) = runs
+        by_depth[depth] = {"prefill": float((card.cpu() - host).abs().max()),
+                           "decode": float((card_step.cpu() - host_step).abs().max())}
+        if depth == 12:
+            compare(card, host, "mamba2 card vs cpu prefill depth 12", 1e-3, 1e-3)
+            compare(card_step, host_step, "mamba2 card vs cpu decode depth 12", 1e-3, 1e-3)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with torch.inference_mode():
+        one = mamba2.prefill(c32, p_cpu, tokens=tokens.cpu())[0]
+    torch.set_num_threads(threads)
+    out["card_vs_cpu_max_abs_err_by_depth"] = by_depth
+    out["cpu_1_vs_default_threads_prefill_full_depth"] = float((one - host).abs().max())
+    tok = build_tokenizer([wl])
+    prompts = [f"question: {t}\nsignature: " for t in _nl_texts(wl, 4)]
+    gens = [ServingEngine(c32, p, tok, device=d).generate(prompts, max_new_tokens=32)
+            for p, d in ((p_card, "cuda"), (p_cpu, "cpu"))]
+    pairs = [(x, y) for g0, g1 in zip(*gens) for x, y in zip(g0["tokens"], g1["tokens"])]
+    out["greedy_tokens_identical_share"] = sum(x == y for x, y in pairs) / max(len(pairs), 1)
+    del p_card, p_cpu, runs, card, card_step
+    torch.cuda.empty_cache()
+
+    # (c) NL requests through the pipeline: the launcher's canonicalizer
+    # over mamba2-780m, the bfloat16 engine on the card
+    nl = serve.llm_canonicalizer(wl, "mamba2-780m", seed=seed, device="cuda")
+    engine = nl.inner.engine
+    tenant = serve.build_tenant(wl, device="cuda", nl=nl)
+    texts = _nl_texts(wl, 2 * NL_BATCH)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = []
+    for i in range(0, len(texts), NL_BATCH):
+        results += run_pipeline(tenant, [QueryRequest(nl=t) for t in texts[i:i + NL_BATCH]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for r in nl._memo.values():
+        if (r.signature is None) != (r.error is not None):
+            raise AssertionError(f"NLResult breaks the protocol: {r}")
+    if nl.calls != len(texts):
+        raise AssertionError(f"{nl.calls} canonicalizer calls for {len(texts)} texts")
+    if launches["ssd_scan"] != cfg.n_layers * len(texts) // NL_BATCH \
+            or launches["flash_attn"] or launches["decode_attn"]:
+        raise AssertionError(f"mamba2 launches {launches} for {len(texts)} requests")
+    out["pipeline"] = {
+        "requests": len(results), "statuses": _statuses(results),
+        "nl_gated": tenant.stats.nl_gated,
+        "errors": sorted({(r.error or "")[:40] for r in nl._memo.values()}),
+        "prompt_len": [_prompt_len(tok, texts[i:i + NL_BATCH])
+                       for i in range(0, len(texts), NL_BATCH)],
+        "engine_wall_s": wall, "decode_steps": engine.steps,
+        "host_s": engine.host_s, "model_s": engine.model_s,
+        "host_ms_per_step": engine.host_s / max(engine.steps, 1) * 1e3,
+        "model_ms_per_step": engine.model_s / max(engine.steps, 1) * 1e3,
+        "tokens_per_s": engine.steps * NL_BATCH / wall,
+        "rows_with_output": sum(len(r.raw_json) > 0 for r in nl._memo.values()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         **oracle.check(results),
     }
     return {"launches": launches, "summary": out, "engine": engine}
@@ -785,6 +1067,8 @@ SOURCES = {
                    "src/repro/kernels/flash_attn/kernel.py:26 _flash_kernel"),
     "decode_attn": ("src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
                     "src/repro/kernels/decode_attn/kernel.py:24 _decode_kernel"),
+    "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:28 _ssd_kernel"),
 }
 
 
@@ -827,14 +1111,15 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     t0 = time.perf_counter()
     errs = kernel_checks(args.n_fact, dev, gen)
-    attn_errs = attention_checks(dev, gen)
+    sweeps = {**attention_checks(dev, gen), "ssd_scan": ssd_checks(dev, gen)}
     times = {**kernel_times(args.n_fact, dev, gen, args.iters),
-             **attention_times(dev, gen, plen, MAX_NEW_TOKENS, 10 * args.iters)}
-    for name, by_dtype in attn_errs.items():
+             **attention_times(dev, gen, plen, MAX_NEW_TOKENS, 10 * args.iters),
+             **ssd_times(dev, gen, plen, 10 * args.iters)}
+    for name, by_dtype in sweeps.items():
         errs[name] = max(*by_dtype.values(), times[name]["max_abs_err"])
     print(f"[kernels] {time.perf_counter() - t0:.1f} s; max abs err {json.dumps(errs)}; "
-          f"attention sweeps by dtype {json.dumps(attn_errs)}, at the main path's "
-          f"shapes (bf16) {json.dumps({k: times[k]['max_abs_err'] for k in attn_errs})}")
+          f"attention and ssd sweeps by dtype {json.dumps(sweeps)}, at the main path's "
+          f"shapes (bf16) {json.dumps({k: times[k]['max_abs_err'] for k in sweeps})}")
     for name, t in times.items():
         print(f"[kernels] {name} {t['shape']}: device ms per call: kernel "
               f"{t['ms']:.4f}, plain {t['plain_ms']:.4f}, library {t['library_ms']}; "
@@ -844,6 +1129,10 @@ def main(argv=None) -> int:
     llm = llm_phase(wl, oracle, args.seed)
     print(f"[llm] {json.dumps(llm['summary'])} launches {json.dumps(llm['launches'])} "
           f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ssm = mamba2_phase(wl, oracle, args.seed)
+    print(f"[mamba2] {json.dumps(ssm['summary'])} launches {json.dumps(ssm['launches'])} "
+          f"in {time.perf_counter() - t0:.1f} s")
     served = serve_phase(wl, oracle)
     print(f"[serve] {json.dumps(served['summary'])} launches {json.dumps(served['launches'])}")
     t0 = time.perf_counter()
@@ -852,14 +1141,16 @@ def main(argv=None) -> int:
           f"in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     print(f"[profile] {json.dumps(profile_sample(args.n_fact, args.seed))}")
-    print(f"[profile] engine {json.dumps(profile_engine(llm['engine'], wl))} "
+    print(f"[profile] engine {json.dumps(profile_engine(llm['engine'], wl))}")
+    print(f"[profile] mamba2 engine {json.dumps(profile_engine(ssm['engine'], wl))} "
           f"in {time.perf_counter() - t0:.1f} s")
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
 
     path_launches = {"seg_agg": served["launches"]["seg_agg"],
                      "seg_agg_fused": served["launches"]["seg_agg_fused"],
                      "flash_attn": llm["launches"]["flash_attn"],
-                     "decode_attn": llm["launches"]["decode_attn"]}
+                     "decode_attn": llm["launches"]["decode_attn"],
+                     "ssd_scan": ssm["launches"]["ssd_scan"]}
     if not all(path_launches.values()):
         raise AssertionError(f"a kernel was never launched on its path: {path_launches}")
     kernels = [{

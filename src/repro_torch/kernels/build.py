@@ -28,6 +28,7 @@ SOURCES: dict[str, tuple[Path, ...]] = {
     "seg_agg": (_PKG / "seg_agg" / "csrc" / "seg_agg.cu",),
     "flash_attn": (_PKG / "flash_attn" / "csrc" / "flash_attn.cu",),
     "decode_attn": (_PKG / "decode_attn" / "csrc" / "decode_attn.cu",),
+    "ssd_scan": (_PKG / "ssd_scan" / "csrc" / "ssd_scan.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

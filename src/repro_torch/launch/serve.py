@@ -5,8 +5,9 @@ OLAP executor, both on the GPU.
 Boots the SSB workload (schema + data synthesised from ``--seed``), the
 executor on ``--device``, a plain :class:`SemanticCache` with the dataset's
 level mapper (so roll-ups can hit), and an NL canonicalizer: the
-canonicalizer LLM (``--arch``, default ``canonicalizer-100m``; ``--reduced``
-for the tiny same-family config) served by :class:`ServingEngine` with
+canonicalizer LLM (``--arch``: any ported family, default
+``canonicalizer-100m``, or ``mamba2-780m``; ``--reduced`` for the tiny
+same-family config) served by :class:`ServingEngine` with
 weights initialised from ``--seed``, or with ``--simulated-llm`` the
 calibrated :class:`SimulatedLLM` (no model inference).  NL requests pass
 the balanced safety policy.  It then replays the SSB mixed stream (13
@@ -19,6 +20,7 @@ the LLM's answers are malformed JSON and its NL requests bypass the cache.
 Usage:
     python -m repro_torch.launch.serve --n-fact 6000000 --queries 403 --batch 8
     python -m repro_torch.launch.serve --device cpu --reduced
+    python -m repro_torch.launch.serve --arch mamba2-780m --queries 62
     python -m repro_torch.launch.serve --n-fact 20000 --device cpu --simulated-llm
 """
 from __future__ import annotations
@@ -54,7 +56,6 @@ def llm_canonicalizer(wl, arch: str = "canonicalizer-100m", reduced: bool = Fals
     to the workload tokenizer's vocabulary (the reduced head is narrower
     than the tokenizer, which constrained decoding cannot mask)."""
     from ..configs.registry import get, reduced as reduced_cfg
-    from ..models.transformer import init_params
     from ..serving.engine import CanonicalizerService, ServingEngine
     from ..training.tokenizer import build_tokenizer
 
@@ -62,7 +63,7 @@ def llm_canonicalizer(wl, arch: str = "canonicalizer-100m", reduced: bool = Fals
     cfg = reduced_cfg(arch) if reduced else get(arch)
     if cfg.vocab < tok.vocab_size:
         cfg = dataclasses.replace(cfg, vocab=tok.vocab_size)
-    engine = ServingEngine(cfg, init_params(cfg, seed, device=device), tok,
+    engine = ServingEngine(cfg, cfg.build().init_params(cfg, seed, device=device), tok,
                            device=device)
     return MemoizedNL(CanonicalizerService(engine, wl.schema.name))
 

@@ -4,9 +4,9 @@ Every registered architecture is a :class:`ModelConfig` with the fields and
 values of the JAX package's ``repro/models/model.py``; ``dtype`` is a
 ``torch.dtype``.  ``build()`` returns the family module that exposes
 ``init_params``/``forward``/``prefill``/``decode_step``.  The port has the
-dense transformer so far; the MoE, SSM and hybrid families are still to
-port (ROADMAP Queue 1 item 8).  Layers run in a Python loop: there is no
-scan to switch to full unroll.
+dense transformer and the SSM family (Mamba2) so far; the MoE and hybrid
+families are still to port (ROADMAP Queue 1 item 5).  Layers run in a
+Python loop: there is no scan to switch to full unroll.
 """
 from __future__ import annotations
 
@@ -57,10 +57,11 @@ class ModelConfig:
 
     def build(self):
         """Return the family module exposing init/prefill/decode fns."""
-        if self.kind != "dense":
+        if self.kind not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"{self.name}: the {self.kind!r} family is not ported yet "
-                "(ROADMAP.md, Queue 1 item 8); the port has the dense transformer")
-        from . import transformer
+                "(ROADMAP.md, Queue 1 item 5); the port has the dense transformer "
+                "and Mamba2")
+        from . import mamba2, transformer
 
-        return transformer
+        return {"dense": transformer, "ssm": mamba2}[self.kind]

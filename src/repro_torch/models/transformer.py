@@ -32,7 +32,7 @@ from .model import ModelConfig
 def param_shapes(cfg: ModelConfig) -> dict:
     if cfg.kind != "dense":
         raise NotImplementedError(f"{cfg.kind!r} is not ported yet (ROADMAP.md, "
-                                  "Queue 1 item 8)")
+                                  "Queue 1 item 5)")
     layer = {**attn_param_shapes(cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                                  cfg.qk_norm),
              **{f"mlp_{k}": v for k, v in
@@ -46,27 +46,36 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+# leaves that stay float32 whatever ``cfg.dtype`` is (none in this family)
+FLOAT32_LEAVES: frozenset = frozenset()
+
+
 def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0,
                 device="cuda") -> dict:
-    """Random init with the JAX package's rule: every matrix normal with
-    std fan_in ** -0.5 (fan_in = shape[-2]), every vector zero (norm weights
-    0 scale by 1).  Drawn in f32 on the CPU from ``generator`` (or a seed),
-    so one seed gives the same weights on every device; then cast to
-    ``cfg.dtype`` on ``device``."""
+    """Random init of the family's ``param_shapes`` with the JAX package's
+    rule: every matrix normal with std fan_in ** -0.5 (fan_in =
+    shape[-2]), every vector zero (norm weights 0 scale by 1).  JAX's init
+    sees a per-layer vector stacked to (L, D) as a matrix and draws it with
+    std L ** -0.5; the port keeps it zero (ROADMAP Queue 3).  Drawn in f32
+    on the CPU from ``generator`` (or a seed), so one seed gives the same
+    weights on every device; then cast to ``cfg.dtype`` (the family's
+    ``FLOAT32_LEAVES`` stay f32) on ``device``."""
     dev = resolve_device(device)
     gen = generator if isinstance(generator, torch.Generator) \
         else torch.Generator().manual_seed(int(generator))
+    f32_leaves = cfg.build().FLOAT32_LEAVES
 
-    def leaf(shape):
+    def leaf(name, shape):
         if len(shape) >= 2:
             w = torch.randn(shape, generator=gen, dtype=torch.float32) * shape[-2] ** -0.5
         else:
             w = torch.zeros(shape, dtype=torch.float32)
-        return w.to(device=dev, dtype=cfg.dtype)
+        return w.to(device=dev,
+                    dtype=torch.float32 if name in f32_leaves else cfg.dtype)
 
-    shapes = param_shapes(cfg)
-    return {k: ([{n: leaf(s) for n, s in sorted(lp.items())} for lp in v]
-                if k == "layers" else leaf(v))
+    shapes = cfg.param_shapes()
+    return {k: ([{n: leaf(n, s) for n, s in sorted(lp.items())} for lp in v]
+                if k == "layers" else leaf(k, v))
             for k, v in sorted(shapes.items())}
 
 

@@ -13,7 +13,10 @@ repeat the JAX oracle's casts, which the kernels do not make): float32 rtol
 4e-3, atol 5e-4, since a bfloat16 kernel does the float32 arithmetic and
 rounds once at the output (at most 2**-9 relative), while the atol stays
 far below the 0.02-0.04 outputs of long rows, where a lost key tile would
-show.
+show.  The SSD scan is held to the sequential ``ssd_ref`` (``ssd_chunked``
+past S = 300) on the inputs' exact float32 values, at ``SSD_TOL``: float32
+tighter than the 5e-3 of ``tests/test_kernels.py``, bfloat16 one output
+rounding (2**-8 relative) more.
 """
 import numpy as np
 import pytest
@@ -27,6 +30,8 @@ from repro_torch.kernels.flash_attn import kernel as fkernel
 from repro_torch.kernels.flash_attn import ref as fref
 from repro_torch.kernels.seg_agg import kernel as tkernel
 from repro_torch.kernels.seg_agg import ref as tref
+from repro_torch.kernels.ssd_scan import kernel as skernel
+from repro_torch.kernels.ssd_scan import ref as sref
 from repro_torch.olap.executor import OlapExecutor
 from repro_torch.workloads import ssb
 
@@ -182,3 +187,106 @@ def test_attention_wrappers_refuse_other_head_dims(cuda_device):
         dkernel.decode_attention_cuda(torch.zeros((1, 4, 64), device=cuda_device),
                                       torch.zeros((1, 3, 16, 64), device=cuda_device),
                                       torch.zeros((1, 3, 16, 64), device=cuda_device), pos)
+
+
+SSD_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (4e-3, 1e-3)}  # (rtol, atol)
+
+
+def _ssd_inputs(dev, b, s, h, p, n, dtype, dt_hi, seed):
+    """dt in [0.001, 0.001 + dt_hi): 0.1 as tests/test_kernels.py, 2.0 as
+    large as mamba2's init gives; A in (-8, -1) as mamba2's a_log."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = 0.001 + torch.rand((b, s, h), generator=gen, device=dev) * dt_hi
+    A = -1.0 - 7.0 * torch.rand(h, generator=gen, device=dev)
+    Bm, Cm = (torch.randn((b, s, n), generator=gen, device=dev) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, 1, 3, 16, 16), (2, 77, 3, 64, 128), (1, 100, 48, 64, 128), (2, 128, 1, 16, 64),
+    (1, 300, 3, 32, 16), (1, 4096, 3, 64, 128), (8, 77, 48, 64, 128)])
+@pytest.mark.parametrize("dt_hi", [0.1, 2.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain(cuda_device, b, s, h, p, n, dt_hi, dtype):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, b, s, h, p, n, dtype, dt_hi, s + n)
+    reset_launch_counts()
+    y, state = skernel.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True)
+    assert launch_counts()["ssd_scan"] == 1
+    assert y.dtype == dtype and y.shape == x.shape and state.shape == (b, h, p, n)
+    assert torch.equal(skernel.ssd_scan_cuda(x, dt, A, Bm, Cm), y)
+    want_y, want_state = sref.ssd_ref(x.float(), dt, A, Bm, Cm) if s <= 300 else \
+        (sref.ssd_chunked(x.float(), dt, A, Bm, Cm),
+         sref.ssd_final_state(x.float(), dt, A, Bm))
+    rtol, atol = SSD_TOL[dtype]
+    np.testing.assert_allclose(y.float().cpu().numpy(), want_y.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+    rtol, atol = SSD_TOL[torch.float32]  # the state is float32 in both
+    np.testing.assert_allclose(state.cpu().numpy(), want_state.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+    torch.cuda.synchronize()
+
+
+def test_ssd_scan_reads_nothing_past_s(cuda_device):
+    """With B = 1 a prefix of S rows is contiguous: the storage past S holds
+    NaN, and the kernel's output and state equal those of exact-size
+    tensors."""
+    s, big = 77, 128
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 1, big, 48, 64, 128, torch.bfloat16,
+                                   2.0, 1)
+    for t in (x, dt, Bm, Cm):
+        t[:, s:] = float("nan")
+    views = [t[:, :s] for t in (x, dt, Bm, Cm)]
+    assert all(v.is_contiguous() for v in views)
+    y, state = skernel.ssd_scan_cuda(views[0], views[1], A, views[2], views[3],
+                                     return_state=True)
+    want = skernel.ssd_scan_cuda(*(v.clone() for v in views[:2]), A,
+                                 *(v.clone() for v in views[2:]), return_state=True)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    assert torch.equal(y, want[0]) and torch.equal(state, want[1])
+
+
+def test_ssd_wrapper_checks_its_inputs(cuda_device):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 1, 8, 2, 16, 16, torch.float32, 0.1, 0)
+    with pytest.raises(TypeError):
+        skernel.ssd_scan_cuda(x, dt.to(torch.bfloat16), A, Bm, Cm)
+    with pytest.raises(TypeError):
+        skernel.ssd_scan_cuda(x.half(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        skernel.ssd_scan_cuda(x, dt, A.cpu(), Bm, Cm)
+    with pytest.raises(ValueError, match="do not match"):
+        skernel.ssd_scan_cuda(x, dt[:, :4], A, Bm, Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        skernel.ssd_scan_cuda(x.transpose(1, 2), dt, A, Bm, Cm)
+    x48 = torch.zeros((1, 8, 2, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 48"):
+        skernel.ssd_scan_cuda(x48, dt, A, Bm, Cm)
+    b100 = torch.zeros((1, 8, 100), device=cuda_device)
+    with pytest.raises(ValueError, match="state size 100"):
+        skernel.ssd_scan_cuda(x, dt, A, b100, b100)
+
+
+def test_mamba2_on_the_card_matches_the_cpu(cuda_device):
+    """The reduced Mamba2 in float32: prefill through the kernel, the decode
+    step in plain PyTorch on the card, against the same model on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs.registry import reduced
+    from repro_torch.models import mamba2
+
+    cfg = dataclasses.replace(reduced("mamba2-780m"), dtype=torch.float32)
+    params = mamba2.init_params(cfg, 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (3, 40), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = mamba2.to_device(params, dev)
+        with torch.inference_mode():
+            logits, caches, pos = mamba2.prefill(cfg, p, tokens=tokens.to(dev))
+            step = mamba2.decode_step(cfg, p, tokens[:, -1].to(dev), caches, pos)[0]
+        out[str(dev)] = (logits.cpu(), step.cpu(), caches["state"].cpu())
+    reset_launch_counts()
+    with torch.inference_mode():
+        mamba2.forward(cfg, mamba2.to_device(params, cuda_device), tokens=tokens.to(cuda_device))
+    assert launch_counts()["ssd_scan"] == cfg.n_layers
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3, atol=1e-3)
