@@ -41,8 +41,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
              bfloat16; (b) the float32 model moved to the CPU (plain
              attention, chosen by the tensors' device) gives the card's
              prefill and decode logits within 1e-3, and the share of
-             identical greedy tokens over one generate; (c) 16 SSB NL
-             requests in batches of 8 through a tenant whose NL
+             identical greedy tokens over one generate; (c) 8 SSB NL
+             requests, one engine batch, through a tenant whose NL
              canonicalizer is ``MemoizedNL(CanonicalizerService(engine))``
              (bfloat16 engine): every NLResult keeps the protocol, every
              served table matches the numpy oracle.  The attention kernels'
@@ -53,13 +53,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
              depth, prefill logits against ``forward`` (2e-2) and one
              ``decode_step`` against ``forward`` over S+1 tokens (3e-2);
              bfloat16 prefill at full depth (2e-2) and decode at depth 1
-             (3e-2), with the bfloat16 decode drift printed by depth (at
-             random init the bf16 model, JAX's too, amplifies rounding
-             layer by layer); (b) the float32 model on the CPU (plain SSD
-             scan) against the card, prefill and decode logits within 1e-3
-             at depth 12 and printed at every depth, the CPU's own spread at
-             full depth (one thread against its default), and the share of
-             identical greedy tokens; (c) 16 SSB NL requests in batches of 8 through a
+             (3e-2: at random init the bf16 model, JAX's too, amplifies
+             rounding layer by layer; ``benchmarks/
+             bench_torch_mamba2_drift.py`` reads the drift by depth); (b)
+             the float32 model on the CPU (plain SSD scan) against the
+             card, prefill and decode logits within 1e-3 at depth 12, and
+             the share of identical greedy tokens at full depth; (c) 16 SSB
+             NL requests in batches of 8 through a
              tenant whose NL canonicalizer is ``serve.llm_canonicalizer``'s
              ``MemoizedNL(CanonicalizerService(engine))`` over mamba2-780m
              (bfloat16): the protocol kept, every table against the oracle,
@@ -488,6 +488,23 @@ def ssd_checks(dev, gen) -> dict:
     return errs
 
 
+def ssd_ops(b: int, s: int, h: int, p: int, n: int, chunk: int = 128) -> int:
+    """Operations the scan with its final state needs (a multiply-add is
+    2): the fewer of two exact forms.  Chunked at the Pallas chunk: C Bᵀ
+    once per batch row (B and C are shared by the heads) and, per head, the
+    masked product with x, both over the causal half only; C against the
+    carried state from the second chunk on (the first starts from zero);
+    and each chunk's state update.  Or the sequential recurrence, 4 N P per
+    step and head."""
+    chunked = 0
+    for start in range(0, s, chunk):
+        l = min(chunk, s - start)
+        tri = l * (l + 1)  # 2 x the l (l + 1) / 2 entries with s <= t
+        carried = 2 * l * n * p if start else 0
+        chunked += b * tri * n + b * h * (tri * p + carried + 2 * l * n * p)
+    return min(chunked, 4 * b * h * s * n * p)
+
+
 def ssd_times(dev, gen, plen: int, iters: int) -> dict:
     """The SSD-scan kernel against its plain version, then kernel and plain
     times, at the main path's shapes: mamba2-780m's prefill of the first
@@ -501,8 +518,6 @@ def ssd_times(dev, gen, plen: int, iters: int) -> dict:
     b, s, h, p, n = 8, plen, 48, 64, 128
     x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, b, s, h, p, n, torch.bfloat16, 2.0)
     shape = f"x ({b},{s},{h},{p}) bf16 dt ({b},{s},{h}) B/C ({b},{s},{n}), state out"
-    chunk = min(128, s)  # the Pallas kernel's chunk, for its operation count
-    n_chunks = -(-s // chunk)
     t = {
         "max_abs_err": _ssd_check(x, dt, A, Bm, Cm, f"ssd main path {shape}"),
         **timed(lambda: SK.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True),
@@ -510,9 +525,7 @@ def ssd_times(dev, gen, plen: int, iters: int) -> dict:
                          SR.ssd_final_state(x, dt, A, Bm)), None, iters),
         # x and y in bf16, dt, A, B, C and the final state in f32, each once
         "bytes": 2 * 2 * b * s * h * p + 4 * (b * s * h + h + 2 * b * s * n + b * h * p * n),
-        # the Pallas kernel's products per (batch, head, chunk): C Bᵀ, the
-        # masked (L, L) product with x, C against the state, the state update
-        "ops": b * h * n_chunks * (2 * chunk * chunk * (n + p) + 4 * chunk * n * p),
+        "ops": ssd_ops(b, s, h, p, n),
         "shape": shape,
     }
     return {"ssd_scan": with_bound(t, F32_OPS_PER_S)}
@@ -644,7 +657,7 @@ def llm_phase(wl, oracle, seed: int) -> dict:
     engine = ServingEngine(cfg, tt.init_params(cfg, seed, device="cuda"), tok)
     nl = MemoizedNL(CanonicalizerService(engine, wl.schema.name))
     tenant = serve.build_tenant(wl, device="cuda", nl=nl)
-    texts = _nl_texts(wl, 2 * NL_BATCH)
+    texts = _nl_texts(wl, NL_BATCH)  # one engine batch: mamba2's phase has two
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -722,24 +735,23 @@ def mamba2_phase(wl, oracle, seed: int) -> dict:
     gen = torch.Generator().manual_seed(seed)
     b, s = 4, 64
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen).cuda()
-    depths = (1, 2, 4, 12, cfg.n_layers)
+    full_depth, cpu_depth = cfg.n_layers, 12
 
     # (a) teacher forcing on the card: prefill (SSD-scan kernel in every
     # layer) against forward, one decode step (plain SSD step from the
-    # kernel's final state) against forward over S+1
+    # kernel's final state) against forward over S+1.  float32 at full
+    # depth; bfloat16 prefill at full depth and decode at depth 1: past it
+    # the random-init model's own amplification of bf16 rounding exceeds
+    # 3e-2, JAX's model as much as this one
+    # (benchmarks/bench_torch_mamba2_drift.py reads it by depth)
     tf = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, dec_depth in ((torch.float32, full_depth), (torch.bfloat16, 1)):
         c = dataclasses.replace(cfg, dtype=dtype)
         name = str(dtype).removeprefix("torch.")
         params = mamba2.init_params(c, seed, device="cuda")
-        # float32 decode at full depth; bfloat16 decode at depth 1: past it
-        # the random-init model's own amplification of bf16 rounding exceeds
-        # 3e-2, JAX's model as much as this one (the drift is printed)
-        dec_depth = cfg.n_layers if dtype == torch.float32 else 1
-        res = {"decode_drift_by_depth": {}}
-        for depth in depths:  # the last is full depth
+        res = {}
+        for depth in sorted({dec_depth, full_depth}):
             full, logits, step, full2 = _teacher_forcing(mamba2, c, params, tokens, depth)
-            res["decode_drift_by_depth"][depth] = float((step - full2[:, -1]).abs().max())
             if depth == dec_depth:
                 res[f"decode_depth_{depth}"] = compare(
                     step, full2[:, -1], f"mamba2 decode {name} depth {depth}", 3e-2, 3e-2)
@@ -751,35 +763,26 @@ def mamba2_phase(wl, oracle, seed: int) -> dict:
         del params, full, full2
     out["teacher_forcing_max_abs_err"] = tf
 
-    # (b) the same float32 model on the CPU: plain SSD scan, same logits,
-    # held to 1e-3 at depth 12 and read at every depth: the model amplifies
-    # f32 rounding layer by layer, and at full depth the CPU with one thread
-    # instead of its default differs from itself by as much (read below)
+    # (b) the same float32 model on the CPU: plain SSD scan, same logits
+    # within 1e-3 at depth 12.  The model amplifies f32 rounding layer by
+    # layer: at full depth the CPU with one thread against its default
+    # differs from itself by more than 1e-3 (bench_torch_mamba2_drift.py)
     c32 = dataclasses.replace(cfg, dtype=torch.float32)
     p_cpu = mamba2.to_device(p_card, "cpu")
-    by_depth = {}
-    for depth in depths:
-        c = dataclasses.replace(c32, n_layers=depth)
-        runs = []
-        for p, t in ((p_card, tokens), (p_cpu, tokens.cpu())):
-            p = {**p, "layers": p["layers"][:depth]}
-            with torch.inference_mode():
-                logits, caches, pos = mamba2.prefill(c, p, tokens=t)
-                step = mamba2.decode_step(c, p, t[:, -1], caches, pos)[0]
-            runs.append((finite(logits, "prefill"), finite(step, "decode")))
-        (card, card_step), (host, host_step) = runs
-        by_depth[depth] = {"prefill": float((card.cpu() - host).abs().max()),
-                           "decode": float((card_step.cpu() - host_step).abs().max())}
-        if depth == 12:
-            compare(card, host, "mamba2 card vs cpu prefill depth 12", 1e-3, 1e-3)
-            compare(card_step, host_step, "mamba2 card vs cpu decode depth 12", 1e-3, 1e-3)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with torch.inference_mode():
-        one = mamba2.prefill(c32, p_cpu, tokens=tokens.cpu())[0]
-    torch.set_num_threads(threads)
-    out["card_vs_cpu_max_abs_err_by_depth"] = by_depth
-    out["cpu_1_vs_default_threads_prefill_full_depth"] = float((one - host).abs().max())
+    c = dataclasses.replace(c32, n_layers=cpu_depth)
+    runs = []
+    for p, t in ((p_card, tokens), (p_cpu, tokens.cpu())):
+        p = {**p, "layers": p["layers"][:cpu_depth]}
+        with torch.inference_mode():
+            logits, caches, pos = mamba2.prefill(c, p, tokens=t)
+            step = mamba2.decode_step(c, p, t[:, -1], caches, pos)[0]
+        runs.append((finite(logits, "prefill"), finite(step, "decode")))
+    (card, card_step), (host, host_step) = runs
+    out[f"card_vs_cpu_max_abs_err_depth_{cpu_depth}"] = {
+        "prefill": compare(card, host, f"mamba2 card vs cpu prefill depth {cpu_depth}",
+                           1e-3, 1e-3),
+        "decode": compare(card_step, host_step,
+                          f"mamba2 card vs cpu decode depth {cpu_depth}", 1e-3, 1e-3)}
     tok = build_tokenizer([wl])
     prompts = [f"question: {t}\nsignature: " for t in _nl_texts(wl, 4)]
     gens = [ServingEngine(c32, p, tok, device=d).generate(prompts, max_new_tokens=32)
@@ -1139,11 +1142,11 @@ def main(argv=None) -> int:
     nl = nl_phase(wl, oracle)
     print(f"[nl] {json.dumps(nl['summary'])} launches {json.dumps(nl['launches'])} "
           f"in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    print(f"[profile] {json.dumps(profile_sample(args.n_fact, args.seed))}")
-    print(f"[profile] engine {json.dumps(profile_engine(llm['engine'], wl))}")
-    print(f"[profile] mamba2 engine {json.dumps(profile_engine(ssm['engine'], wl))} "
-          f"in {time.perf_counter() - t0:.1f} s")
+    for what, run in (("", lambda: profile_sample(args.n_fact, args.seed)),
+                      ("engine ", lambda: profile_engine(llm["engine"], wl)),
+                      ("mamba2 engine ", lambda: profile_engine(ssm["engine"], wl))):
+        t0 = time.perf_counter()
+        print(f"[profile] {what}{json.dumps(run())} in {time.perf_counter() - t0:.1f} s")
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
 
     path_launches = {"seg_agg": served["launches"]["seg_agg"],

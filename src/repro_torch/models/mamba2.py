@@ -29,9 +29,8 @@ import torch.nn.functional as F
 from ..kernels.ssd_scan.ops import ssd_scan
 from ..kernels.ssd_scan.ref import ssd_decode_step
 from .layers import rmsnorm
-from .model import ModelConfig
+from .model import ModelConfig, init_by_rule
 from .transformer import _inputs, embed_tokens, logits_fn
-from .transformer import init_params as _generic_init
 from .transformer import to_device  # noqa: F401  (the family interface the engine calls)
 
 FLOAT32_LEAVES = frozenset({"dt_bias", "a_log", "d_skip"})
@@ -55,10 +54,10 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0,
                 device="cuda") -> dict:
-    """The dense transformer's init rule on this family's shapes, then
-    JAX's SSD overrides: decay rates a_log = log(linspace(1, 8, H)) (A from
-    -1 to -8), dt_bias -2, d_skip 1, all float32."""
-    params = _generic_init(cfg, generator, device)
+    """The JAX package's init rule (``init_by_rule``) on this family's
+    shapes, then JAX's SSD overrides: decay rates a_log = log(linspace(1, 8,
+    H)) (A from -1 to -8), dt_bias -2, d_skip 1, all float32."""
+    params = init_by_rule(cfg, param_shapes(cfg), generator, device)
     dev, h, f32 = params["embed"].device, cfg.ssm_heads, torch.float32
     a_log = torch.log(torch.linspace(1.0, 8.0, h, dtype=f32))
     for lp in params["layers"]:

@@ -14,6 +14,8 @@ import dataclasses
 
 import torch
 
+from ..olap.columnar import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -65,3 +67,28 @@ class ModelConfig:
         from . import mamba2, transformer
 
         return {"dense": transformer, "ssm": mamba2}[self.kind]
+
+
+def init_by_rule(cfg: ModelConfig, shapes: dict, generator: "torch.Generator | int" = 0,
+                 device="cuda") -> dict:
+    """Random parameters of a family's ``shapes`` with the JAX package's
+    rule: every matrix normal with std fan_in ** -0.5 (fan_in =
+    shape[-2]), every vector zero (norm weights 0 scale by 1).  JAX's init
+    sees a per-layer vector stacked to (L, D) as a matrix and draws it with
+    std L ** -0.5; the port keeps it zero (ROADMAP Queue 3).  Drawn in f32
+    on the CPU from ``generator`` (or a seed), so one seed gives the same
+    weights on every device; then cast to ``cfg.dtype`` on ``device``."""
+    dev = resolve_device(device)
+    gen = generator if isinstance(generator, torch.Generator) \
+        else torch.Generator().manual_seed(int(generator))
+
+    def leaf(shape):
+        if len(shape) >= 2:
+            w = torch.randn(shape, generator=gen, dtype=torch.float32) * shape[-2] ** -0.5
+        else:
+            w = torch.zeros(shape, dtype=torch.float32)
+        return w.to(device=dev, dtype=cfg.dtype)
+
+    return {k: ([{n: leaf(s) for n, s in sorted(lp.items())} for lp in v]
+                if k == "layers" else leaf(v))
+            for k, v in sorted(shapes.items())}

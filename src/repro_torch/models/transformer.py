@@ -24,9 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from ..olap.columnar import resolve_device
 from .layers import attention, attn_param_shapes, mlp, mlp_param_shapes, rmsnorm
-from .model import ModelConfig
+from .model import ModelConfig, init_by_rule
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -52,31 +51,8 @@ FLOAT32_LEAVES: frozenset = frozenset()
 
 def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0,
                 device="cuda") -> dict:
-    """Random init of the family's ``param_shapes`` with the JAX package's
-    rule: every matrix normal with std fan_in ** -0.5 (fan_in =
-    shape[-2]), every vector zero (norm weights 0 scale by 1).  JAX's init
-    sees a per-layer vector stacked to (L, D) as a matrix and draws it with
-    std L ** -0.5; the port keeps it zero (ROADMAP Queue 3).  Drawn in f32
-    on the CPU from ``generator`` (or a seed), so one seed gives the same
-    weights on every device; then cast to ``cfg.dtype`` (the family's
-    ``FLOAT32_LEAVES`` stay f32) on ``device``."""
-    dev = resolve_device(device)
-    gen = generator if isinstance(generator, torch.Generator) \
-        else torch.Generator().manual_seed(int(generator))
-    f32_leaves = cfg.build().FLOAT32_LEAVES
-
-    def leaf(name, shape):
-        if len(shape) >= 2:
-            w = torch.randn(shape, generator=gen, dtype=torch.float32) * shape[-2] ** -0.5
-        else:
-            w = torch.zeros(shape, dtype=torch.float32)
-        return w.to(device=dev,
-                    dtype=torch.float32 if name in f32_leaves else cfg.dtype)
-
-    shapes = cfg.param_shapes()
-    return {k: ([{n: leaf(n, s) for n, s in sorted(lp.items())} for lp in v]
-                if k == "layers" else leaf(k, v))
-            for k, v in sorted(shapes.items())}
+    """Random parameters by the JAX package's rule (``init_by_rule``)."""
+    return init_by_rule(cfg, param_shapes(cfg), generator, device)
 
 
 def to_device(params: dict, device) -> dict:
