@@ -6,20 +6,30 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. build   — compile every CUDA kernel from the sources in this checkout
-             (one nvcc per source, all started together).
+             (one nvcc per source, all started together); print each
+             attention kernel instance's registers, spills and static
+             shared memory from ``ptxas -v``, and its HMMA (tensor-core)
+             instruction count from ``cuobjdump -sass`` where installed
+             (fails if a bf16 flash instance has none).
 2. kernels — hold each kernel against its plain PyTorch version on the card.
              seg_agg / seg_agg_fused: a small case with NaN values,
              NaN-sentinel and pad ranges and an empty mask, then a sweep at
              main-path shapes (N = n_fact); rtol 1e-4, atol 1e-4, NaN where
              the plain version has NaN (sums use atomics, so their last bits
-             vary run to run).  flash_attn: GQA groups 1, 3, 4, S in {1, 77,
-             96, 512, 1000}, causal and not, head dims 64 and 128.
-             decode_attn: caches of 512 and 4096 slots, pos in {1, 77, 511,
-             S}, and cache slots past pos overwritten (999 keys, NaN values)
-             change nothing.  Both again at the main path's shapes (bf16,
-             8 prompts of 12 heads over 4 KV heads, head dim 64; decode at
-             the first, a middle and the last decode step's pos on a
-             512-slot cache).  The plain versions run on the inputs' exact
+             vary run to run).  flash_attn: GQA groups 1, 2, 3, 4, 8, S in
+             {1, 2, 63, 64, 65, 77, 96, 129, 512, 1000} (the 64-row tile
+             edges), causal and not, head dims 64 and 128.  decode_attn:
+             caches of 512 and 4096 slots, pos in {1, C-1, C, C+1, 77,
+             511, S} in one batch (C = 32 slots per f32 block), two calls
+             bit-identical, cache slots past pos overwritten (999 keys, NaN
+             values) change nothing, and in bf16 a decode step over each
+             flash case's keys equals the flash output's last row bit for
+             bit.  Both again at the main path's
+             shapes (bf16, 8 prompts of 12 heads over 4 KV heads, head dim
+             64; decode at the first, a middle and the last decode step's
+             pos on a 512-slot cache) and at the engine's ceiling (8
+             prompts of 512 tokens; decode at pos 512).  The plain versions
+             run on the inputs' exact
              float32 values; tolerances (rtol, atol): float32 (2e-3, 2e-3),
              bfloat16 (4e-3, 5e-4).  ssd_scan: S in {1, 77, 100, 128, 300,
              4096} over (N, P, H) in {(16, 16, 1), (64, 64, 3), (128, 64,
@@ -32,7 +42,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
              shapes (8 prompts, 48 heads, P 64, N 128, bf16 x).  Times each
              kernel, its plain version and, where one exists, one PyTorch
              library call computing the same function, at the main path's
-             shapes: device time per call under ``torch.profiler``.
+             shapes: device time per call under ``torch.profiler``; for
+             the attention kernels also kernel and library at the
+             engine's ceiling (printed first), and the host microseconds
+             per call of the ``decode_attention`` dispatcher and of SDPA.
 3. llm     — canonicalizer-100m at full width (12 layers, d_model 768, 12/4
              heads, head dim 64, d_ff 2048, vocab 8192), weights initialised
              from ``--seed``: (a) teacher forcing on the card, prefill
@@ -112,6 +125,7 @@ RTOL = ATOL = 1e-4
 ATTN_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (4e-3, 5e-4)}
 NL_BATCH = 8
 MAX_NEW_TOKENS = 128  # the decode steps of a CanonicalizerService batch at most
+MAX_LEN = 512  # the engine's KV cache slots (prompt + decoded tokens)
 
 
 def _fail(msg: str) -> int:
@@ -194,6 +208,70 @@ def with_bound(t: dict, ops_per_s: float) -> dict:
 
 
 # --------------------------------------------------------------- kernels
+
+
+def _instance(mangled: str) -> str:
+    """``flash_attn_bf16_kernel<64>`` from its mangled name: the first
+    length-prefixed name ending in ``_kernel`` and its template arguments."""
+    import re
+
+    for m in re.finditer(r"(?=(\d\d?)[A-Za-z_])", mangled):  # every 1-2 digit length
+        start = m.start() + len(m.group(1))
+        name = mangled[start:start + int(m.group(1))]
+        rest = mangled[start + len(name):]
+        if name.endswith("_kernel") and rest.startswith("I"):
+            args = re.match(r"I(.*?)EEv", rest)
+            names = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a.group(0), a.group(1))
+                     for a in re.finditer(r"13__nv_bfloat16|Li(\d+)E?|f",
+                                          args.group(1) if args else "")]
+            return f"{name}<{','.join(names)}>"
+    return mangled
+
+
+def build_info(names=("flash_attn", "decode_attn")) -> dict:
+    """Per kernel instance of each library: registers, spill bytes and
+    shared memory as ``ptxas -v`` reported them in the build log, and the
+    count of HMMA (tensor-core) instructions in its SASS where
+    ``cuobjdump`` is installed (None where it is not)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    info: dict = {}
+    for name in names:
+        lib = build.library_path(name)
+        cur = None
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                cur = info.setdefault(_instance(m.group(1)), {})
+            elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                                     r"spill loads", line)):
+                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(sm.group(1)) if sm else 0
+        tool = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent / "cuobjdump")
+        if not Path(tool).exists():
+            continue
+        sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
+                              text=True, timeout=120).stdout
+        cur = None
+        for line in sass.splitlines():
+            if m := re.search(r"Function : (\w+)", line):
+                cur = info.setdefault(_instance(m.group(1)), {})
+                cur["hmma"] = 0
+            elif cur is not None and "HMMA" in line:
+                cur["hmma"] += 1
+    bf16_flash = [i for i in info if i.startswith("flash_attn_bf16_kernel")]
+    if not bf16_flash:
+        raise AssertionError(f"no bf16 flash instance among {sorted(info)}")
+    for inst, row in info.items():
+        row.setdefault("hmma", None)
+        if inst in bf16_flash and row["hmma"] == 0:
+            raise AssertionError(f"{inst}: no HMMA in its SASS")
+    return info
 
 
 def _bounds(gen, s, p, k, dev, lo=0, hi=10):
@@ -319,33 +397,43 @@ def attention_checks(dev, gen) -> dict:
     from repro_torch.kernels.flash_attn import ref as FR
 
     errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in ("flash_attn", "decode_attn")}
-    b, hkv = 2, 2
+    b, hkv, c = 2, 2, DK.CHUNK
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         rtol, atol = ATTN_TOL[name]
         for dh in (64, 128):
-            for g in (1, 3, 4):
+            for g in (1, 2, 3, 4, 8):
                 h = hkv * g
-                for s in (1, 77, 96, 512, 1000):
+                for s in (1, 2, 63, 64, 65, 77, 96, 129, 512, 1000):
                     q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(dtype)
                     k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
                             for _ in range(2))
-                    for causal in (True, False):
+                    for causal in (False, True):
                         what = f"flash {dtype} dh={dh} G={g} S={s} causal={causal}"
-                        err = compare(FK.flash_attention_cuda(q, k, v, causal=causal),
-                                      FR.mha_ref(*_f32(q, k, v), causal=causal), what,
+                        got = FK.flash_attention_cuda(q, k, v, causal=causal)
+                        err = compare(got, FR.mha_ref(*_f32(q, k, v), causal=causal), what,
                                       rtol, atol)
                         errs["flash_attn"][name] = max(errs["flash_attn"][name], err)
+                    if dtype == torch.bfloat16:  # a decode step is the prefill's row
+                        pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+                        if not torch.equal(DK.decode_attention_cuda(
+                                q[:, :, -1].contiguous(), k, v, pos), got[:, :, -1]):
+                            raise AssertionError(f"{what}: a decode step differs from "
+                                                 "the prefill's last row")
                 for s in (512, 4096):
-                    q = torch.randn(4, h, dh, generator=gen, device=dev).to(dtype)
-                    k, v = (torch.randn(4, hkv, s, dh, generator=gen, device=dev).to(dtype)
-                            for _ in range(2))
-                    pos = torch.tensor([1, 77, 511, s], dtype=torch.int32, device=dev)
+                    # chunk edges and the engine's pos, mixed in one batch
+                    pos = torch.tensor([1, c - 1, c, c + 1, 77, 511, s], dtype=torch.int32,
+                                       device=dev)
+                    q = torch.randn(len(pos), h, dh, generator=gen, device=dev).to(dtype)
+                    k, v = (torch.randn(len(pos), hkv, s, dh, generator=gen,
+                                        device=dev).to(dtype) for _ in range(2))
                     what = f"decode {dtype} dh={dh} G={g} S={s}"
                     got = DK.decode_attention_cuda(q, k, v, pos)
                     err = compare(got, DR.decode_attention_ref(*_f32(q, k, v), pos), what,
                                   rtol, atol)
                     errs["decode_attn"][name] = max(errs["decode_attn"][name], err)
+                    if not torch.equal(DK.decode_attention_cuda(q, k, v, pos), got):
+                        raise AssertionError(f"{what}: two calls differ")
                     for i, p in enumerate(pos.tolist()):
                         k[i, :, p:], v[i, :, p:] = 999.0, float("nan")
                     if not torch.equal(DK.decode_attention_cuda(q, k, v, pos), got):
@@ -354,63 +442,118 @@ def attention_checks(dev, gen) -> dict:
     return errs
 
 
-def attention_times(dev, gen, plen: int, steps: int, iters: int) -> dict:
+def _flash_work(b: int, h: int, hkv: int, s: int, dh: int) -> dict:
+    """Bytes and operations one causal bf16 prefill call needs: q, K, V read
+    once and the output written once; both products over the valid
+    (causal) keys."""
+    return {"bytes": 2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh),
+            "ops": 4 * b * h * (s * (s + 1) // 2) * dh}
+
+
+def _decode_work(b: int, h: int, hkv: int, n: int, dh: int) -> dict:
+    """Bytes and operations one bf16 decode call over ``n`` valid slots
+    needs: q and the output once, the first n keys and values once, pos."""
+    return {"bytes": 2 * (2 * b * h * dh + 2 * b * hkv * n * dh) + 4 * b,
+            "ops": 4 * b * h * n * dh}
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call: the wall time of enqueueing ``calls``
+    calls back to back, before the closing synchronize."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
+def attention_times(dev, gen, plen: int, steps: int, cache: int, iters: int) -> dict:
     """Each attention kernel against its plain version, then kernel, plain
     and library times, at the serving engine's shapes: canonicalizer-100m
     (12 heads over 4 KV heads, head dim 64), a batch of 8 prompts padded to
-    ``plen`` tokens in bfloat16; decode over a 512-slot cache, checked at
-    the first, a middle and the last of ``steps`` decode steps (the kernel
+    ``plen`` tokens in bfloat16; decode over a ``cache``-slot cache, checked
+    at the first, a middle and the last of ``steps`` decode steps (the kernel
     attends over pos = plen + 1 .. plen + steps keys) and timed at the
-    first.  ``max_abs_err`` of each entry is the largest of its checks."""
+    first.  Each entry's ``reach`` holds the kernel and library times at the
+    engine's ceiling, 8 prompts of ``cache`` tokens and decode at pos =
+    ``cache``, also checked.  ``max_abs_err`` of each entry is the largest
+    of its checks; the decode entry's ``host_us`` is the host time per call
+    of the dispatcher ``decode_attention`` and of the SDPA call."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.decode_attn import ref as DR
+    from repro_torch.kernels.decode_attn.ops import decode_attention
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn import ref as FR
 
-    b, h, hkv, dh, cache, bf = 8, 12, 4, 64, 512, torch.bfloat16
+    b, h, hkv, dh, bf = 8, 12, 4, 64, torch.bfloat16
     rtol, atol = ATTN_TOL["bfloat16"]
-    s = plen
-    q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf)
-    k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(bf) for _ in range(2))
-    shape = f"q ({b},{h},{s},{dh}) k/v ({b},{hkv},{s},{dh}) bf16 causal"
-    out = {"flash_attn": {
-        "max_abs_err": compare(FK.flash_attention_cuda(q, k, v), FR.mha_ref(*_f32(q, k, v)),
-                               f"flash main path {shape}", rtol, atol),
-        **timed(lambda: FK.flash_attention_cuda(q, k, v), lambda: FR.mha_ref(q, k, v),
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), iters),
-        # q, K, V read once and the output written once; causal valid keys
-        "bytes": 2 * (2 * b * h * s * dh + 2 * b * hkv * s * dh),
-        "ops": 4 * b * h * (s * (s + 1) // 2) * dh,
-        "shape": shape,
-    }}
+
+    def sdpa_prefill(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    def flash_at(s: int) -> tuple[dict, tuple]:
+        """Checked kernel and library times at S = s, and the inputs."""
+        q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf)
+        k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        shape = f"q ({b},{h},{s},{dh}) k/v ({b},{hkv},{s},{dh}) bf16 causal"
+        err = compare(FK.flash_attention_cuda(q, k, v), FR.mha_ref(*_f32(q, k, v)),
+                      f"flash {shape}", rtol, atol)
+        return with_bound({
+            "shape": shape, "max_abs_err": err,
+            "ms": device_ms(lambda: FK.flash_attention_cuda(q, k, v), iters),
+            "library_ms": device_ms(lambda: sdpa_prefill(q, k, v), iters),
+            **_flash_work(b, h, hkv, s, dh)}, BF16_OPS_PER_S), (q, k, v)
+
+    flash, inputs = flash_at(plen)
+    reach, _ = flash_at(cache)
+    flash["plain_ms"] = device_ms(lambda: FR.mha_ref(*inputs), max(3, iters // 4))
+    flash["max_abs_err"] = max(flash["max_abs_err"], reach["max_abs_err"])
+    out = {"flash_attn": {**flash, "reach": reach}}
+
     qd = torch.randn(b, h, dh, generator=gen, device=dev).to(bf)
     kc, vc = (torch.randn(b, hkv, cache, dh, generator=gen, device=dev).to(bf)
               for _ in range(2))
+    q4 = qd[:, :, None, :]
+
+    def decode_pos(n: int):
+        pos = torch.full((b,), n, dtype=torch.int32, device=dev)
+        mask = (torch.arange(cache, device=dev) < pos[:, None])[:, None, None, :]
+        return pos, lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, attn_mask=mask, enable_gqa=True)
+
     err = 0.0
-    for p in sorted({plen + 1, plen + (steps + 1) // 2, plen + steps}):
-        pos = torch.full((b,), p, dtype=torch.int32, device=dev)
+    for n in sorted({plen + 1, plen + (steps + 1) // 2, plen + steps, cache}):
+        pos = torch.full((b,), n, dtype=torch.int32, device=dev)
         err = max(err, compare(DK.decode_attention_cuda(qd, kc, vc, pos),
                                DR.decode_attention_ref(*_f32(qd, kc, vc), pos),
-                               f"decode main path pos={p}", rtol, atol))
-    pos_n = plen + 1
-    pos = torch.full((b,), pos_n, dtype=torch.int32, device=dev)
-    mask = (torch.arange(cache, device=dev) < pos[:, None])[:, None, None, :]
-    q4 = qd[:, :, None, :]
+                               f"decode main path pos={n}", rtol, atol))
+    pos, sdpa = decode_pos(plen + 1)
     out["decode_attn"] = {
         "max_abs_err": err,
         **timed(lambda: DK.decode_attention_cuda(qd, kc, vc, pos),
-                lambda: DR.decode_attention_ref(qd, kc, vc, pos),
-                lambda: F.scaled_dot_product_attention(
-                    q4, kc, vc, attn_mask=mask, enable_gqa=True), iters),
-        # q and the output once, the first pos keys and values once, pos
-        "bytes": 2 * (2 * b * h * dh + 2 * b * hkv * pos_n * dh) + 4 * b,
-        "ops": 4 * b * h * pos_n * dh,
-        "shape": f"q ({b},{h},{dh}) cache ({b},{hkv},{cache},{dh}) pos={pos_n} bf16",
+                lambda: DR.decode_attention_ref(qd, kc, vc, pos), sdpa, iters),
+        **_decode_work(b, h, hkv, plen + 1, dh),
+        "shape": f"q ({b},{h},{dh}) cache ({b},{hkv},{cache},{dh}) pos={plen + 1} bf16",
+        "host_us": {"decode_attention": host_us(lambda: decode_attention(qd, kc, vc, pos)),
+                    "sdpa": host_us(sdpa)},
     }
+    pos_c, sdpa_c = decode_pos(cache)
+    out["decode_attn"]["reach"] = with_bound({
+        "ms": device_ms(lambda: DK.decode_attention_cuda(qd, kc, vc, pos_c), iters),
+        "library_ms": device_ms(sdpa_c, iters),
+        **_decode_work(b, h, hkv, cache, dh),
+        "shape": f"q ({b},{h},{dh}) cache ({b},{hkv},{cache},{dh}) pos={cache} bf16",
+    }, BF16_OPS_PER_S)
     return {k: with_bound(t, BF16_OPS_PER_S) for k, t in out.items()}
 
 
@@ -1101,6 +1244,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build_all()
     print(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.1f} s; card: {card}")
+    print(f"[build] attention kernels (ptxas -v, SASS): {json.dumps(build_info())}")
 
     t0 = time.perf_counter()
     wl = ssb.build(n_fact=args.n_fact, seed=args.seed)
@@ -1116,7 +1260,7 @@ def main(argv=None) -> int:
     errs = kernel_checks(args.n_fact, dev, gen)
     sweeps = {**attention_checks(dev, gen), "ssd_scan": ssd_checks(dev, gen)}
     times = {**kernel_times(args.n_fact, dev, gen, args.iters),
-             **attention_times(dev, gen, plen, MAX_NEW_TOKENS, 10 * args.iters),
+             **attention_times(dev, gen, plen, MAX_NEW_TOKENS, MAX_LEN, 10 * args.iters),
              **ssd_times(dev, gen, plen, 10 * args.iters)}
     for name, by_dtype in sweeps.items():
         errs[name] = max(*by_dtype.values(), times[name]["max_abs_err"])
@@ -1124,9 +1268,16 @@ def main(argv=None) -> int:
           f"attention and ssd sweeps by dtype {json.dumps(sweeps)}, at the main path's "
           f"shapes (bf16) {json.dumps({k: times[k]['max_abs_err'] for k in sweeps})}")
     for name, t in times.items():
+        if "reach" in t:  # the engine's ceiling, before its main-path line
+            r = t["reach"]
+            print(f"[kernels] {name} reach {r['shape']}: device ms per call: kernel "
+                  f"{r['ms']:.4f}, library {r['library_ms']:.4f}; "
+                  f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
         print(f"[kernels] {name} {t['shape']}: device ms per call: kernel "
               f"{t['ms']:.4f}, plain {t['plain_ms']:.4f}, library {t['library_ms']}; "
               f"bound {t['bound_ms']:.5f} ({t['bound_by']})")
+        if "host_us" in t:
+            print(f"[kernels] {name} host us per call: {json.dumps(t['host_us'])}")
 
     t0 = time.perf_counter()
     llm = llm_phase(wl, oracle, args.seed)

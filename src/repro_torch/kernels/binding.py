@@ -56,6 +56,15 @@ def check_tensor(name: str, t, dtypes, ndim: int, device) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def check_aligned(name: str, t, nbytes: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary (the
+    kernels copy rows in 16-byte vectors; a contiguous view that starts
+    inside a row does not)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: the kernel reads {nbytes}-byte vectors; the "
+                         f"data does not start on a {nbytes}-byte boundary")
+
+
 def raise_on(rc: int, error_string, what: str) -> None:
     """Raise if a launcher returned a CUDA error code other than 0."""
     if rc != 0:

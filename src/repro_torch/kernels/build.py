@@ -4,7 +4,9 @@ Each kernel source under ``kernels/<name>/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``.  Libraries go to ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), named by a digest of the source and
-the flags, so an edited source is rebuilt and an unchanged one is not.
+the flags, so an edited source is rebuilt and an unchanged one is not.  The
+headers under ``kernels/csrc/`` that the sources include are hashed into
+every library's name, so an edited header rebuilds them all.
 Nothing is built when a module is imported: the first launch builds what it
 needs, and ``build_all`` starts one ``nvcc`` per source, all at once.
 """
@@ -31,6 +33,9 @@ SOURCES: dict[str, tuple[Path, ...]] = {
     "ssd_scan": (_PKG / "ssd_scan" / "csrc" / "ssd_scan.cu",),
 }
 
+# shared headers, included by the sources with a relative path
+HEADERS: tuple[Path, ...] = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,7 +60,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES[name]:
+    for src in (*SOURCES[name], *HEADERS):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -6,27 +6,52 @@
 //   q (B, H, Dh), k and v (B, Hkv, S, Dh), f32 or bf16, pos (B,) int32
 //   -> out (B, H, Dh) in q's dtype: row b attends to cache slots [0, pos[b]).
 //
-// Grid: one block per (batch, KV head).  The G = H / Hkv query heads of the
-// group sit together in shared memory (scaled by Dh**-0.5 in f32, as the
-// Pallas kernel does), so each K/V tile is read from device memory once for
-// all of them.  The TPU grid's sequential KV axis is a loop inside the
-// block; its bound is min(pos[b], S), so the block reads and computes
-// nothing at or past pos (the Pallas kernel's tile skip, down to the key).
-// Per tile: logits (G, kTK) from the staged K tile, one warp per query row
-// for the online softmax (running max, denominator, rescale factor), then
-// the V tile of the same keys through the same buffer into the f32
-// accumulator.
-//
 // What bounds it on this card: bytes.  Every cached key and value up to pos
-// is read once and used for 2*G multiply-adds per element, far below the
-// ~295 FLOP/byte at which the tensor cores would become the limit; the
-// least time is (q + 2*B*Hkv*pos*Dh elements + out) over 3.35 TB/s.  At the
-// serving engine's sizes (B*Hkv = 32 blocks, pos ~ 100) a launch is mostly
-// fixed cost; splitting the sequence over more blocks (flash-decode) is
-// later work.
+// is read once and used for 2*G multiply-adds per element (about 3 FLOP per
+// byte at G = 3, against the ~295 at which the tensor cores would matter),
+// so the least time is (q + 2*B*Hkv*pos*Dh elements + out) over 3.35 TB/s.
+// At the serving engine's sizes (B*Hkv = 32, pos ~ 100) that is well under
+// a microsecond, and what a launch costs is latency: how many blocks run at
+// once, how many bytes each has in flight, and how long its chain of
+// dependent steps is.  Both instances are sized from the cache length S,
+// never from pos (reading pos on the host would sync every decode step),
+// copy K and V with 16-byte cp.async, and never read a slot at or past pos
+// (zero-filled by the copy, masked with -1e30).
 //
-// Numerics follow the Pallas kernel: f32 logits, online softmax, p and
-// accumulator; the output is acc / max(l, 1e-30) cast to q's dtype.
+// bf16 (the serving dtype), `decode_bf16_kernel`: one warp per (batch * KV
+// head, 16 of its G query heads, 8 of the Dh output columns), so the
+// engine's batch (B*Hkv = 32, G = 3, Dh = 64) launches 256 blocks.  Each
+// block runs the prefill kernel's own tile step (`kernels/csrc/
+// attn_tile.cuh`) over 64-key tiles of the cache, double-buffered: Q K^T
+// and P V on the tensor cores, the online softmax in registers, p split
+// into bf16 hi + lo.  The split is over output columns, not over the
+// cache, so a decode step's output is bit for bit the prefill kernel's
+// output for the same token's row: in bf16 a model amplifies any
+// difference in rounding layer by layer, and the serving engine's decode
+// steps then agree exactly with a forward pass over the same tokens.
+// Every block recomputes the row's softmax (K is read once per column
+// slice, from L2) and reads only its 8 columns of V.
+//
+// f32 (the check dtype), `decode_f32_kernel`, flash-decode: one block of 4
+// warps per (batch * KV head, chunk of kChunk = 32 cache slots); a block
+// whose chunk starts at or past min(pos[b], S) exits at once.  A live block
+// issues its chunk's copies at once, scales the group's G query rows into
+// shared memory (as the Pallas kernel does) while they fly, and computes
+// with two block-wide barriers: warp w takes query rows w, w + 4, ...,
+// lane = cache slot, for the G logits per slot, the chunk's max m, p =
+// exp(s - m) and l = sum p by warp shuffles; then acc[G, Dh] = sum p v.
+// It writes its partial (acc, m, l) to scratch and takes a ticket for its
+// (b, KV head); the block that draws the last ticket of the live chunks
+// resets the ticket to 0 for the next launch and combines: m* = max m_i
+// and l = sum l_i exp(m_i - m*) with lanes over the chunks, then out =
+// sum acc_i exp(m_i - m*) / max(l, 1e-30) in chunk order.  The order of
+// every sum is fixed (no float atomics), so two calls on the same inputs
+// give bit-identical outputs, and empty chunks never enter the combine.
+// The wrapper owns the scratch and the tickets (zeroed once).
+//
+// pos <= 0 gives zeros, as the Pallas kernel's acc / max(l, 1e-30) does.
+// Numerics follow the Pallas kernel: f32 logits, softmax, p and
+// accumulator; the output is cast to q's dtype once.
 //
 // Plain C interface, bound with ctypes.  The launcher runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -35,141 +60,270 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/attn_tile.cuh"
+#include "../../csrc/hopper_ptx.cuh"
+
 namespace {
 
-constexpr int kTK = 64;        // cache slots per tile
+using attn::kBK;      // keys per tile (bf16)
+using attn::kNegInf;  // the logit of a masked slot
+constexpr int kMaxGroup = 128;  // query heads per KV head
+
+// ---------------------------------------------------------------- bf16
+
+constexpr int kCols = 8;  // output columns per bf16 block: one mma n-tile
+
+template <int DH>
+constexpr int bf16_smem_bytes() {
+  return (16 + 2 * kBK) * (DH + 8) * 2 + 2 * kBK * kCols * 2;  // Q, 2 x K, 2 x V slice
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32)
+decode_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
+                   __nv_bfloat16* __restrict__ out, int kv_heads, int group, int seq,
+                   float scale) {
+  constexpr int LDS = DH + 8;  // padded row stride of Q and K (elements)
+  constexpr int CH = DH / 8;   // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (16, LDS)
+  __nv_bfloat16* sk = sq + 16 * LDS;                               // 2 x (64, LDS)
+  __nv_bfloat16* sv = sk + 2 * kBK * LDS;                          // 2 x (64, kCols)
+
+  const int blocks16 = (group + 15) / 16;
+  const int bk = blockIdx.x / blocks16;               // b * kv_heads + KV head
+  const int h0 = (blockIdx.x % blocks16) * 16;        // first query head of the block
+  const int c0 = blockIdx.y * kCols;                  // first output column
+  const int lane = threadIdx.x, g = lane / 4;
+  const int n = min(pos[bk / kv_heads], seq);  // cache slots the row attends to
+  const long long row0 = (long long)bk * group + h0;  // (B * H) row of head h0
+  __nv_bfloat16* o0 = h0 + g < group ? out + (row0 + g) * DH + c0 : nullptr;
+  __nv_bfloat16* o1 = h0 + g + 8 < group ? out + (row0 + g + 8) * DH + c0 : nullptr;
+  if (n <= 0) {
+    const int c = (lane % 4) * 2;
+    if (o0) *reinterpret_cast<uint32_t*>(o0 + c) = 0u;
+    if (o1) *reinterpret_cast<uint32_t*>(o1 + c) = 0u;
+    return;
+  }
+  const __nv_bfloat16* kb = k + (long long)bk * seq * DH;
+  const __nv_bfloat16* vb = v + (long long)bk * seq * DH + c0;
+  for (int i = lane; i < 16 * CH; i += 32) {  // query heads h0.., past G zero-filled
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = h0 + r < group;
+    ptx::cp_async16(sq + r * LDS + c, ok ? q + (row0 + r) * DH + c : q, ok ? 16 : 0);
+  }
+  auto copy_kv = [&](int t0, int buf) {
+#pragma unroll 4
+    for (int i = lane; i < kBK * CH; i += 32) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool ok = t0 + r < n;
+      ptx::cp_async16(sk + (buf * kBK + r) * LDS + c,
+                      ok ? kb + (long long)(t0 + r) * DH + c : kb, ok ? 16 : 0);
+    }
+    for (int r = lane; r < kBK; r += 32) {
+      const bool ok = t0 + r < n;
+      ptx::cp_async16(sv + (buf * kBK + r) * kCols, ok ? vb + (long long)(t0 + r) * DH : vb,
+                      ok ? 16 : 0);
+    }
+  };
+  copy_kv(0, 0);
+  ptx::cp_async_commit();
+
+  const float scale2 = scale * 1.4426950408889634f;  // as the prefill kernel's
+  const int n_tiles = (n + kBK - 1) / kBK;
+  uint32_t qf[DH / 16][4];
+  attn::Rows<1> st;
+  st.init();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, t0 = t * kBK;
+    if (t + 1 < n_tiles) copy_kv(t0 + kBK, buf ^ 1);
+    ptx::cp_async_commit();  // possibly empty: keeps wait_group<1> exact
+    ptx::cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) attn::load_q<DH, LDS>(qf, sq, lane);
+    attn::tile<DH, LDS, 1, kCols>(st, qf, sk + buf * kBK * LDS, sv + buf * kBK * kCols,
+                                  t0 + kBK > n, n - t0, n - t0, scale2, lane);
+    __syncthreads();  // buffer `buf` is consumed before it is refilled
+  }
+  ptx::cp_async_wait<0>();
+  attn::store(st, o0, o1, lane);
+}
+
+// ----------------------------------------------------------------- f32
+
+constexpr int kChunk = 32;     // cache slots per f32 block: one per lane
 constexpr int kThreads = 128;  // four warps
 constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// sum of a[d] * b[d] over 4 floats, a the scaled query in shared memory
+__device__ __forceinline__ float dot_vec(const float* a, const float* b) {
+  const float4 x = *reinterpret_cast<const float4*>(b);
+  const float4 y = *reinterpret_cast<const float4*>(a);
+  return y.x * x.x + y.y * x.y + y.z * x.z + y.w * x.w;
 }
 
-// cache slots [t0, t0 + kTK) of one (S, DH) head into a (kTK, DH + 1) f32
-// tile; slots at or past `n` are never read and stage as 0
-template <typename T, int DH>
-__device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src,
-                                           int t0, int n) {
-  constexpr int LD = DH + 1;
-  for (int i = threadIdx.x; i < kTK * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    dst[r * LD + d] = t0 + r < n ? to_f32(src[(long long)(t0 + r) * DH + d]) : 0.0f;
-  }
+template <int DH>
+size_t f32_smem_bytes(int group) {
+  return (size_t)(2 * kChunk * (DH + 4) + group * (DH + kChunk)) * sizeof(float);
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ pos,
-                   T* __restrict__ out, int kv_heads, int group, int seq,
-                   float scale) {
-  constexpr int LD = DH + 1;
-  extern __shared__ float smem[];
-  float* sq = smem;                  // (G, DH) q * scale
-  float* sacc = sq + group * DH;     // (G, DH) accumulator
-  float* sp = sacc + group * DH;     // (G, kTK) logits, then p
-  float* sm = sp + group * kTK;      // (G,) running max
-  float* sl = sm + group;            // (G,) running denominator
-  float* salpha = sl + group;        // (G,) this tile's rescale factor
-  float* skv = salpha + group;       // (kTK, LD) K tile, then V tile
+decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const int* __restrict__ pos,
+                  float* __restrict__ out, float* __restrict__ part,
+                  unsigned int* __restrict__ tickets, int kv_heads, int group,
+                  int seq, float scale) {
+  constexpr int VEC = 4;         // floats per 16-byte copy
+  constexpr int LDS = DH + VEC;  // padded row stride
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sk = reinterpret_cast<float*>(smem_raw);  // (kChunk, LDS)
+  float* sv = sk + kChunk * LDS;                   // (kChunk, LDS)
+  float* sq = sv + kChunk * LDS;                   // (G, DH) q * scale
+  float* sp = sq + group * DH;                     // (G, kChunk) p
+  __shared__ bool last;
 
-  const int bk = blockIdx.x;  // b * kv_heads + kv head
-  const int b = bk / kv_heads;
-  const int n = min(pos[b], seq);  // cache slots this row attends to
+  const int bk = blockIdx.x;  // b * kv_heads + KV head
+  const int n = min(pos[bk / kv_heads], seq);  // cache slots this row attends to
+  const int chunk = blockIdx.y, c0 = chunk * kChunk;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // the group's G query heads are contiguous in (B, H, Dh)
-  const T* qb = q + (long long)bk * group * DH;
-  const T* kb = k + (long long)bk * seq * DH;
-  const T* vb = v + (long long)bk * seq * DH;
-
-  for (int i = tid; i < group * DH; i += kThreads) {
-    sq[i] = to_f32(qb[i]) * scale;
-    sacc[i] = 0.0f;
+  float* ob = out + (long long)bk * group * DH;  // the group's G heads are contiguous
+  if (n <= 0) {
+    if (chunk == 0)
+      for (int i = tid; i < group * DH; i += kThreads) ob[i] = 0.0f;
+    return;
   }
-  for (int g = tid; g < group; g += kThreads) {
-    sm[g] = kNegInf;
-    sl[g] = 0.0f;
-  }
+  if (c0 >= n) return;
+  const int live = (n + kChunk - 1) / kChunk;  // live chunks of this (b, KV head)
 
-  for (int t0 = 0; t0 < n; t0 += kTK) {
-    __syncthreads();  // state initialised / the previous V tile consumed
-    stage_tile<T, DH>(skv, kb, t0, n);
-    __syncthreads();
-    for (int i = tid; i < group * kTK; i += kThreads) {
-      const int g = i / kTK, c = i % kTK;
-      float s = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) s = fmaf(sq[g * DH + d], skv[c * LD + d], s);
-      sp[i] = t0 + c < n ? s : kNegInf;
-    }
-    __syncthreads();
-    for (int g = warp; g < group; g += kWarps) {
-      const float m_prev = sm[g];
-      float mx = kNegInf;
-      for (int c = lane; c < kTK; c += 32) mx = fmaxf(mx, sp[g * kTK + c]);
+  const float* kb = k + (long long)bk * seq * DH;
+  const float* vb = v + (long long)bk * seq * DH;
+  for (int i = tid; i < kChunk * (DH / VEC); i += kThreads) {
+    const int r = i / (DH / VEC), c = (i % (DH / VEC)) * VEC;
+    const bool in = c0 + r < n;
+    const long long off = (long long)(in ? c0 + r : 0) * DH + c;
+    ptx::cp_async16(sk + r * LDS + c, kb + off, in ? 16 : 0);
+    ptx::cp_async16(sv + r * LDS + c, vb + off, in ? 16 : 0);
+  }
+  ptx::cp_async_commit();
+  const float* qb = q + (long long)bk * group * DH;
+  for (int i = tid; i < group * DH; i += kThreads) sq[i] = qb[i] * scale;
+  ptx::cp_async_wait<0>();
+  __syncthreads();
+
+  // per-block partial: acc (G, DH), then m (G), then l (G)
+  float* pb = part + ((long long)bk * gridDim.y + chunk) * group * (DH + 2);
+  for (int g = warp; g < group; g += kWarps) {
+    float s = 0.0f;
+    const float* qg = sq + g * DH;
+    const float* kr = sk + lane * LDS;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_prev, mx);
-      float rs = 0.0f;
-      for (int c = lane; c < kTK; c += 32) {
-        const float p = expf(sp[g * kTK + c] - m_new);
-        sp[g * kTK + c] = p;
-        rs += p;
-      }
+    for (int d = 0; d < DH; d += VEC) s += dot_vec(qg + d, kr + d);
+    s = c0 + lane < n ? s : kNegInf;
+    float m = s;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        salpha[g] = alpha;
-        sl[g] = sl[g] * alpha + rs;
-        sm[g] = m_new;
-      }
-    }
-    __syncthreads();  // p and alpha are written; every read of K is done
-    stage_tile<T, DH>(skv, vb, t0, n);
-    __syncthreads();
-    // each thread owns the same (g, d) accumulator slots on every tile
-    for (int i = tid; i < group * DH; i += kThreads) {
-      const int g = i / DH, d = i % DH;
-      float a = sacc[i] * salpha[g];
-#pragma unroll 8
-      for (int c = 0; c < kTK; ++c) a = fmaf(sp[g * kTK + c], skv[c * LD + d], a);
-      sacc[i] = a;
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const float p = expf(s - m);
+    float l = p;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    sp[g * kChunk + lane] = p;
+    if (lane == 0) {
+      pb[group * DH + g] = m;
+      pb[group * DH + group + g] = l;
     }
   }
   __syncthreads();
-  T* ob = out + (long long)bk * group * DH;
+
+  // thread i owns dims (2i mod DH, +1) of query row 2i / DH
+  for (int i = tid; i < group * DH / 2; i += kThreads) {
+    const int g = (2 * i) / DH, d = (2 * i) % DH;
+    const float* pg = sp + g * kChunk;
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll 8
+    for (int c = 0; c < kChunk; ++c) {
+      const float2 vv = *reinterpret_cast<const float2*>(sv + c * LDS + d);
+      a0 = fmaf(pg[c], vv.x, a0);
+      a1 = fmaf(pg[c], vv.y, a1);
+    }
+    *reinterpret_cast<float2*>(pb + g * DH + d) = make_float2(a0, a1);
+  }
+
+  // the last live block of this (b, KV head) combines the partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(tickets + bk, 1u) == (unsigned)(live - 1);
+    if (last) tickets[bk] = 0;  // every other live block has taken its ticket
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* p0 = part + (long long)bk * gridDim.y * group * (DH + 2);
+  const long long stride = (long long)group * (DH + 2);  // floats per partial
+  // m* and the denominator of query row g: warp w takes rows w, w + 4, ...,
+  // lane j the chunks j, j + 32, ... (one round trip for up to 32 chunks),
+  // then a fixed shuffle tree
+  for (int g = warp; g < group; g += kWarps) {
+    float mx = kNegInf;
+    for (int j = lane; j < live; j += 32)
+      mx = fmaxf(mx, __ldcg(p0 + j * stride + group * DH + g));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float l = 0.0f;
+    for (int j = lane; j < live; j += 32) {
+      const float* pj = p0 + j * stride + group * DH;
+      l = fmaf(__ldcg(pj + group + g), expf(__ldcg(pj + g) - mx), l);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      sp[g] = mx;
+      sp[group + g] = fmaxf(l, 1e-30f);
+    }
+  }
+  __syncthreads();
   for (int i = tid; i < group * DH; i += kThreads) {
-    ob[i] = from_f32<T>(sacc[i] / fmaxf(sl[i / DH], 1e-30f));
+    const int g = i / DH;
+    const float mx = sp[g];
+    float a = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < live; ++j) {
+      const float* pj = p0 + j * stride;
+      a = fmaf(__ldcg(pj + i), expf(__ldcg(pj + group * DH + g) - mx), a);
+    }
+    ob[i] = a / sp[group + g];
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* pos,
-                   void* out, int batch, int kv_heads, int group, int seq,
-                   float scale, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * group * DH + group * kTK + 3 * group + kTK * (DH + 1)) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(decode_attn_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* pos,
+                        void* out, int batch, int kv_heads, int group, int seq,
+                        float scale, cudaStream_t stream) {
+  dim3 grid((unsigned)(batch * kv_heads * ((group + 15) / 16)), (unsigned)(DH / kCols));
+  decode_bf16_kernel<DH><<<grid, 32, bf16_smem_bytes<DH>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), pos, static_cast<__nv_bfloat16*>(out),
+      kv_heads, group, seq, scale);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* pos,
+                       void* out, float* part, unsigned int* tickets, int batch,
+                       int kv_heads, int group, int seq, float scale, cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_ready{0};
+  cudaError_t err = ptx::allow_dynamic_smem(decode_f32_kernel<DH>,
+                                            (int)f32_smem_bytes<DH>(kMaxGroup), smem_ready);
   if (err != cudaSuccess) return err;
-  decode_attn_kernel<T, DH><<<(unsigned)(batch * kv_heads), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      pos, static_cast<T*>(out), kv_heads, group, seq, scale);
+  const int chunks = seq > 0 ? (seq + kChunk - 1) / kChunk : 1;  // pos <= 0 writes zeros
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)(batch * kv_heads), (unsigned)chunks);
+  decode_f32_kernel<DH><<<grid, kThreads, f32_smem_bytes<DH>(group), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), pos, static_cast<float*>(out), part, tickets,
+      kv_heads, group, seq, scale);
   return cudaGetLastError();
 }
 
@@ -181,28 +335,39 @@ const char* decode_attn_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// dtype: 0 float32, 1 bfloat16.  head_dim: 64 or 128 (anything else is
-// refused with cudaErrorInvalidValue; the Python wrapper checks first).
+// Cache slots per f32 block; the wrapper sizes the f32 instance's scratch
+// with it: B * Hkv * max(1, ceil(S / chunk)) * G * (head_dim + 2) floats,
+// and B * Hkv tickets, zero before the first launch (each launch leaves
+// them zero).  The bf16 instance takes no scratch.
+int decode_attn_chunk(void) { return kChunk; }
+
+// dtype: 0 float32, 1 bfloat16.  head_dim: 64 or 128, at most kMaxGroup
+// query heads per KV head (anything else is refused with
+// cudaErrorInvalidValue; the Python wrapper checks first).  `part` and
+// `tickets` are the f32 instance's scratch described at decode_attn_chunk.
 int decode_attn_launch(const void* q, const void* k, const void* v,
                        const int* pos, void* out, int batch, int heads,
                        int kv_heads, int seq, int head_dim, float scale,
-                       int dtype, void* stream_ptr) {
+                       int dtype, void* stream_ptr, void* part, void* tickets) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (batch <= 0) return (int)cudaSuccess;
   if (kv_heads <= 0 || heads % kv_heads != 0) return (int)cudaErrorInvalidValue;
   const int group = heads / kv_heads;
+  if (group > kMaxGroup) return (int)cudaErrorInvalidValue;
+  float* pf = static_cast<float*>(part);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
   if (dtype == 0 && head_dim == 64)
-    return (int)launch<float, 64>(q, k, v, pos, out, batch, kv_heads, group,
-                                  seq, scale, stream);
+    return (int)launch_f32<64>(q, k, v, pos, out, pf, tk, batch, kv_heads, group, seq,
+                               scale, stream);
   if (dtype == 0 && head_dim == 128)
-    return (int)launch<float, 128>(q, k, v, pos, out, batch, kv_heads, group,
-                                   seq, scale, stream);
+    return (int)launch_f32<128>(q, k, v, pos, out, pf, tk, batch, kv_heads, group, seq,
+                                scale, stream);
   if (dtype == 1 && head_dim == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, pos, out, batch, kv_heads,
-                                          group, seq, scale, stream);
+    return (int)launch_bf16<64>(q, k, v, pos, out, batch, kv_heads, group, seq, scale,
+                                stream);
   if (dtype == 1 && head_dim == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, pos, out, batch, kv_heads,
-                                           group, seq, scale, stream);
+    return (int)launch_bf16<128>(q, k, v, pos, out, batch, kv_heads, group, seq, scale,
+                                 stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,27 +6,50 @@
 //   q (B, H, S, Dh), k and v (B, Hkv, S, Dh), f32 or bf16 -> out (B, H, S, Dh)
 //   in q's dtype.  Query head h reads KV head h / (H / Hkv).
 //
-// Grid: one block per (batch * head, tile of kBQ query rows).  The TPU grid
-// ran its KV axis in order and carried (m, l, acc) in VMEM scratch from one
-// grid step to the next; here that axis is a loop inside the block, and the
-// running max, denominator and f32 accumulator live in registers.  The Q
-// tile (scaled in f32, as the Pallas kernel does) stays in shared memory for
-// the whole loop; each K tile and then the V tile of the same keys are
-// staged through one shared-memory buffer, converted to f32 on the way in.
-// With `causal`, tiles whose first key lies past the block's last query row
-// are never visited (the Pallas kernel's `pl.when` skip); keys at or past S
-// are masked with -1e30, so any S works, not only tile multiples.
+// What bounds it on this card: bytes while S is short (q, K/V and out once
+// over 3.35 TB/s; the serving engine's prompts of ~77 tokens and its
+// max_len of 512 both sit there), operations beyond (4*B*H*sum(valid
+// keys)*Dh FLOPs against the tensor cores' 989 TFLOP/s in bf16).  At the
+// serving sizes a launch is mostly fixed cost plus a few dependent trips to
+// device memory, so the design cuts bytes and round trips, and keeps the
+// products on the tensor cores.
 //
-// What bounds it on this card: operations at long S (4*B*H*sum(valid keys)*Dh
-// FLOPs against the tensor cores' 989 TFLOP/s), bytes at the short prompts
-// the serving engine sends (q, K/V and out once over 3.35 TB/s); at those
-// sizes a launch is mostly fixed cost.  This first version multiplies on the
-// CUDA cores in f32 (a 16 x 16 thread grid, each thread 4 x 4 logits and
-// 4 x Dh/16 outputs, padded shared-memory rows so no two lanes of a warp hit
-// one bank); wgmma and TMA are later work.
+// bf16 (the serving dtype), `flash_attn_bf16_kernel`:
+// - Grid: one block of 4 warps per (batch * KV head, tile of 64 packed
+//   query rows).  A tile packs the G = H / Hkv query heads of one KV head,
+//   interleaved by position: packed row r is (position r / G, head r % G).
+//   So each K/V tile goes through shared memory once for the whole GQA
+//   group, and a tile spans only 64 / G positions, which keeps the causal
+//   skip tight: K tiles past the tile's last position are never loaded, and
+//   a warp skips a K tile that lies wholly past its own 16 rows.
+// - Memory: Q, K and V stay bf16 in shared memory.  The Q tile and the
+//   first K/V tile are fetched with 16-byte cp.async; K/V tiles of 64 keys
+//   are double-buffered, the next tile's copy in flight while the current
+//   one is multiplied.  Rows are padded by 16 bytes, so the eight rows an
+//   ldmatrix reads fall in distinct banks.  Keys, values and query rows
+//   past S are zero-filled by the copy, never read.
+// - Products: S = Q K^T with mma.sync m16n8k16 (bf16 x bf16 -> f32, exact
+//   per product), Q fragments loaded once into registers, K fragments with
+//   ldmatrix; the f32 logits are scaled after the product (for head dim 64
+//   that is the Pallas kernel's q * scale exactly; for 128 it differs by one
+//   f32 rounding), and by log2(e) with it, so that p = exp2(s' - m')
+//   (ex2.approx: relative error ~2^-22, far inside the tolerance).
+//   Masking (keys >= S, causal; only on tiles that reach past some row's
+//   last key) and the online softmax stay in registers, row max and sum
+//   across the four lanes of a quad; the tile loop's body is straight-line
+//   code apart from those two tests.  Under causal masking the tiles with
+//   the most K tiles start first.  P V keeps p at f32 precision: p is
+//   split into hi = bf16(p) and lo = bf16(p - hi), and both go through mma
+//   into the same f32 accumulator (about 16 significant bits of p), with V
+//   fragments from ldmatrix.trans.
 //
-// Numerics follow the Pallas kernel: logits, the online softmax, p and the
-// accumulator are f32, the output is acc / max(l, 1e-30) cast to q's dtype.
+// f32 (the check dtype), `flash_attn_f32_kernel`: one block of 256 threads
+// per (batch * head, 64 query rows), f32 products on the CUDA cores (TF32
+// would not hold the 2e-3 tolerance), padded shared-memory rows.
+//
+// Numerics of both follow the Pallas kernel: logits, the online softmax, p
+// and the accumulator are f32; the output is acc / max(l, 1e-30) cast to
+// q's dtype.  Keys at or past S are masked with -1e30, so any S works.
 //
 // Plain C interface, bound with ctypes.  The launcher runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -35,43 +58,170 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/attn_tile.cuh"
+#include "../../csrc/hopper_ptx.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16: ty owns rows ty + 16 i, tx keys / dims tx + 16 j
-constexpr float kNegInf = -1e30f;
+using attn::kBK;      // keys per tile
+using attn::kNegInf;  // the logit of a masked key
+constexpr int kBQ = 64;  // query rows per block (f32)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------- bf16
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+constexpr int kWarpsBf16 = 4;              // each warp owns 16 packed query rows
+constexpr int kBQ16 = kWarpsBf16 * 16;      // packed query rows per block
+
+// n / d for 0 <= n < 2^31 by a multiply-high and a shift (Granlund and
+// Montgomery's round-up method); the GQA group size is fixed for a launch,
+// and a packed row's (position, head) costs no integer division
+struct FastDiv {
+  int d;
+  uint32_t magic;
+  int shift;
+  explicit FastDiv(int divisor) : d(divisor), shift(0) {
+    while ((1ll << shift) < d) ++shift;
+    magic = (uint32_t)((((1ull << 32) * ((1ull << shift) - d)) / d) + 1);
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return (int)(((unsigned long long)__umulhi((uint32_t)n, magic) + (uint32_t)n) >> shift);
+  }
+};
+
+template <int DH>
+constexpr int bf16_smem_bytes() {
+  return (kBQ16 + 4 * kBK) * (DH + 8) * 2;  // Q, 2 x K, 2 x V
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWarpsBf16 * 32)
+flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       __nv_bfloat16* __restrict__ out, int heads, int kv_heads,
+                       int seq, float scale, int causal, FastDiv group) {
+  constexpr int LDS = DH + 8;     // padded row stride (elements)
+  constexpr int KS = DH / 16;     // k-steps of Q K^T
+  constexpr int DT = DH / 8;      // n-tiles of the output
+  constexpr int CH = DH / 8;      // 16-byte chunks per row
+  constexpr int RPI = kWarpsBf16 * 32 / CH;  // rows one pass of the block copies
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (kBQ16, LDS)
+  __nv_bfloat16* sk = sq + kBQ16 * LDS;                           // 2 x (64, LDS)
+  __nv_bfloat16* sv = sk + 2 * kBK * LDS;                         // 2 x (64, LDS)
+
+  const int bk = blockIdx.y;  // b * kv_heads + KV head
+  const int b = bk / kv_heads, kvh = bk % kv_heads;
+  const int rows = seq * group.d;  // packed rows of this (b, KV head)
+  // causal: the tiles with the most K tiles start first
+  const int r0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBQ16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long hs = (long long)seq * DH;  // elements per head
+  // head kvh * group + j of batch b starts at qh + j * hs
+  const __nv_bfloat16* qh = q + ((long long)b * heads + (long long)kvh * group.d) * hs;
+  __nv_bfloat16* oh = out + ((long long)b * heads + (long long)kvh * group.d) * hs;
+  // packed row r is position r / G of head r % G
+  auto row_at = [&](auto* base, int r) {
+    const int pos = group.div(r);
+    return base + (r - pos * group.d) * hs + (long long)pos * DH;
+  };
+  const __nv_bfloat16* kb = k + (long long)bk * hs;
+  const __nv_bfloat16* vb = v + (long long)bk * hs;
+
+  // keys this tile needs: causal stops at its last row's position
+  const int last_row = min(r0 + kBQ16, rows) - 1;
+  const int k_end = causal ? group.div(last_row) + 1 : seq;
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+
+  // copies: this thread moves 16-byte column chunk `cc` of rows cr + RPI i;
+  // rows past S (or past the packed rows) are zero-filled, never read
+  const int cr = threadIdx.x / CH, cc = (threadIdx.x % CH) * 8;
+#pragma unroll
+  for (int i = 0; i < kBQ16 / RPI; ++i) {
+    const int pr = r0 + cr + RPI * i;
+    const bool ok = pr < rows;
+    ptx::cp_async16(sq + (cr + RPI * i) * LDS + cc, ok ? row_at(qh, pr) + cc : qh,
+                    ok ? 16 : 0);
+  }
+  auto copy_kv = [&](int t0, int buf) {
+    __nv_bfloat16* dk = sk + (buf * kBK + cr) * LDS + cc;
+    __nv_bfloat16* dv = sv + (buf * kBK + cr) * LDS + cc;
+#pragma unroll
+    for (int i = 0; i < kBK / RPI; ++i) {
+      const int key = t0 + cr + RPI * i;
+      const bool ok = key < seq;
+      const long long off = (long long)key * DH + cc;
+      ptx::cp_async16(dk + RPI * i * LDS, ok ? kb + off : kb, ok ? 16 : 0);
+      ptx::cp_async16(dv + RPI * i * LDS, ok ? vb + off : vb, ok ? 16 : 0);
+    }
+  };
+  copy_kv(0, 0);
+  ptx::cp_async_commit();
+
+  // this thread's two rows of the warp's 16: g and g + 8; a row attends to
+  // keys [0, kmax) (causal: up to its own position)
+  const int g = lane / 4;
+  const int wr0 = r0 + warp * 16;
+  const bool warp_live = wr0 < rows;
+  const int kmax0 = causal ? min(seq, group.div(wr0 + g) + 1) : seq;
+  const int kmax1 = causal ? min(seq, group.div(wr0 + g + 8) + 1) : seq;
+  // the fewest and the most keys any of the warp's live rows attends to
+  const int warp_kmin = causal ? min(seq, group.div(wr0) + 1) : seq;
+  const int warp_kmax = causal ? min(seq, group.div(min(wr0 + 15, rows - 1)) + 1) : seq;
+  const float scale2 = scale * 1.4426950408889634f;  // logits in log2 units: p = 2^(s' - m')
+
+  uint32_t qf[KS][4];
+  attn::Rows<DT> st;
+  st.init();
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, t0 = t * kBK;
+    if (t + 1 < n_tiles) copy_kv(t0 + kBK, buf ^ 1);
+    ptx::cp_async_commit();  // possibly empty: keeps wait_group<1> exact
+    ptx::cp_async_wait<1>();
+    __syncthreads();  // tile t (and Q) visible to every warp
+
+    if (t == 0) attn::load_q<DH, LDS>(qf, sq + warp * 16 * LDS, lane);
+    if (warp_live && t0 < warp_kmax)  // else every key of the tile is masked
+      attn::tile<DH, LDS, DT, LDS>(st, qf, sk + buf * kBK * LDS, sv + buf * kBK * LDS,
+                                   t0 + kBK > warp_kmin, kmax0 - t0, kmax1 - t0, scale2,
+                                   lane);
+    __syncthreads();  // every warp is done with buffer `buf` before it is refilled
+  }
+  ptx::cp_async_wait<0>();
+
+  if (!warp_live) return;
+  const int pr0 = wr0 + g, pr1 = wr0 + g + 8;
+  attn::store(st, pr0 < rows ? row_at(oh, pr0) : nullptr,
+              pr1 < rows ? row_at(oh, pr1) : nullptr, lane);
+}
+
+// ----------------------------------------------------------------- f32
+
+constexpr int kThreadsF32 = 256;  // 16 x 16: ty owns rows ty + 16 i, tx keys / dims tx + 16 j
+
+template <int DH>
+constexpr int f32_smem_bytes() {
+  return (2 * kBQ * (DH + 1) + kBQ * (kBK + 1)) * 4;  // Q, K/V, P
 }
 
 // rows [r0, r0 + ROWS) of a (seq, DH) matrix, times `mul`, into a
-// (ROWS, DH + 1) f32 tile; rows at or past `valid` read as 0
-template <typename T, int DH, int ROWS>
-__device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src,
-                                           int r0, int valid, float mul) {
+// (ROWS, DH + 1) tile; rows at or past `valid` read as 0
+template <int DH, int ROWS>
+__device__ __forceinline__ void stage_f32(float* dst, const float* __restrict__ src,
+                                          int r0, int valid, float mul) {
   constexpr int LD = DH + 1;
-  for (int i = threadIdx.x; i < ROWS * DH; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * DH; i += kThreadsF32) {
     const int r = i / DH, d = i % DH;
-    dst[r * LD + d] =
-        r0 + r < valid ? to_f32(src[(long long)(r0 + r) * DH + d]) * mul : 0.0f;
+    dst[r * LD + d] = r0 + r < valid ? src[(long long)(r0 + r) * DH + d] * mul : 0.0f;
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int heads,
-                  int kv_heads, int seq, float scale, int causal) {
+template <int DH>
+__global__ void __launch_bounds__(kThreadsF32)
+flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out, int heads,
+                      int kv_heads, int seq, float scale, int causal) {
   constexpr int LD = DH + 1;    // padded row stride of the Q and K/V tiles
   constexpr int LDP = kBK + 1;  // padded row stride of the P tile
   constexpr int RI = kBQ / 16;  // query rows per thread
@@ -87,11 +237,11 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = b * kv_heads + h / (heads / kv_heads);
   const int q0 = blockIdx.y * kBQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* qb = q + (long long)bh * seq * DH;
-  const T* kb = k + (long long)kvh * seq * DH;
-  const T* vb = v + (long long)kvh * seq * DH;
+  const float* qb = q + (long long)bh * seq * DH;
+  const float* kb = k + (long long)kvh * seq * DH;
+  const float* vb = v + (long long)kvh * seq * DH;
 
-  stage_tile<T, DH, kBQ>(sq, qb, q0, seq, scale);
+  stage_f32<DH, kBQ>(sq, qb, q0, seq, scale);
 
   float m[RI], l[RI], acc[RI][DJ];
 #pragma unroll
@@ -106,7 +256,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(seq, q0 + kBQ) : seq;
   for (int t0 = 0; t0 < k_end; t0 += kBK) {
     __syncthreads();  // the previous V tile is consumed (and Q is staged)
-    stage_tile<T, DH, kBK>(skv, kb, t0, seq, 1.0f);
+    stage_f32<DH, kBK>(skv, kb, t0, seq, 1.0f);
     __syncthreads();
 
     float s[RI][CJ];
@@ -160,7 +310,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CJ; ++j) sp[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
     }
     __syncthreads();  // p is written and every read of the K tile is done
-    stage_tile<T, DH, kBK>(skv, vb, t0, seq, 1.0f);
+    stage_f32<DH, kBK>(skv, vb, t0, seq, 1.0f);
     __syncthreads();
 
 #pragma unroll 4
@@ -177,32 +327,55 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + (long long)bh * seq * DH;
+  float* ob = out + (long long)bh * seq * DH;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= seq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      ob[(long long)row * DH + tx + 16 * j] = from_f32<T>(acc[i][j] / den);
+    for (int j = 0; j < DJ; ++j) ob[(long long)row * DH + tx + 16 * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int heads, int kv_heads, int seq, float scale,
-                   int causal, cudaStream_t stream) {
-  constexpr int LD = DH + 1;
-  const size_t smem = (size_t)(2 * kBQ * LD + kBQ * (kBK + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// ------------------------------------------------------------ launchers
+
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
+                        int batch, int heads, int kv_heads, int seq, float scale,
+                        int causal, cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_ready{0};
+  constexpr int smem = bf16_smem_bytes<DH>();
+  cudaError_t err =
+      ptx::allow_dynamic_smem(flash_attn_bf16_kernel<DH>, smem, smem_ready);
   if (err != cudaSuccess) return err;
+  const long long rows = (long long)seq * (heads / kv_heads);
+  const long long tiles = (rows + kBQ16 - 1) / kBQ16;
+  if (rows > 0x7fffffffLL || (long long)batch * kv_heads > 65535)
+    return cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, (unsigned)(batch * kv_heads));
+  flash_attn_bf16_kernel<DH><<<grid, kWarpsBf16 * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), heads,
+      kv_heads, seq, scale, causal, FastDiv(heads / kv_heads));
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       int batch, int heads, int kv_heads, int seq, float scale,
+                       int causal, cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_ready{0};
+  constexpr int smem = f32_smem_bytes<DH>();
+  cudaError_t err =
+      ptx::allow_dynamic_smem(flash_attn_f32_kernel<DH>, smem, smem_ready);
+  if (err != cudaSuccess) return err;
+  if ((seq + kBQ - 1) / kBQ > 65535) return cudaErrorInvalidValue;
   dim3 grid((unsigned)(batch * heads), (unsigned)((seq + kBQ - 1) / kBQ));
-  flash_attn_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), heads, kv_heads, seq, scale, causal);
+  flash_attn_f32_kernel<DH><<<grid, kThreadsF32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), heads, kv_heads, seq,
+      scale, causal);
   return cudaGetLastError();
 }
 
@@ -223,17 +396,17 @@ int flash_attn_launch(const void* q, const void* k, const void* v, void* out,
   if (batch <= 0 || seq <= 0) return (int)cudaSuccess;
   if (kv_heads <= 0 || heads % kv_heads != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 64)
-    return (int)launch<float, 64>(q, k, v, out, batch, heads, kv_heads, seq,
-                                  scale, causal, stream);
+    return (int)launch_f32<64>(q, k, v, out, batch, heads, kv_heads, seq, scale,
+                               causal, stream);
   if (dtype == 0 && head_dim == 128)
-    return (int)launch<float, 128>(q, k, v, out, batch, heads, kv_heads, seq,
-                                   scale, causal, stream);
+    return (int)launch_f32<128>(q, k, v, out, batch, heads, kv_heads, seq, scale,
+                                causal, stream);
   if (dtype == 1 && head_dim == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, out, batch, heads, kv_heads,
-                                          seq, scale, causal, stream);
+    return (int)launch_bf16<64>(q, k, v, out, batch, heads, kv_heads, seq, scale,
+                                causal, stream);
   if (dtype == 1 && head_dim == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, out, batch, heads, kv_heads,
-                                           seq, scale, causal, stream);
+    return (int)launch_bf16<128>(q, k, v, out, batch, heads, kv_heads, seq, scale,
+                                 causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,11 @@
 ``flash_attention_cuda`` replaces the Pallas TPU kernel ``_flash_kernel`` of
 the JAX package (``repro/kernels/flash_attn/kernel.py``): q (B, H, S, Dh),
 k and v (B, Hkv, S, Dh), float32 or bfloat16 -> (B, H, S, Dh) in q's dtype,
-blockwise online softmax in f32, K tiles above the diagonal skipped.  The
-kernel is built for head dims 64 and 128; any other raises ``ValueError``.
+blockwise online softmax in f32, K tiles above the diagonal skipped.  In
+bfloat16 the products run on the tensor cores, each K/V tile staged once
+per GQA group (``ref.flash_tiled_ref`` is the same arithmetic in plain
+PyTorch); float32 multiplies on the CUDA cores.  The kernel is built for
+head dims 64 and 128; any other raises ``ValueError``.
 The wrapper checks its inputs, allocates the output, launches on the
 current stream, raises on a launch error and counts each launch as
 ``flash_attn`` in ``binding.launch_counts``.  The plain version is
@@ -16,7 +19,8 @@ import ctypes
 
 import torch
 
-from ..binding import FLOAT, INT, PTR, check_tensor, count_launch, raise_on
+from ..binding import (FLOAT, INT, PTR, check_aligned, check_tensor, count_launch,
+                       raise_on)
 from ..build import load
 
 HEAD_DIMS = (64, 128)
@@ -51,6 +55,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True, scale: float | None = Non
         raise ValueError(f"{h} query heads are not a multiple of {hkv} KV heads")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh}: the kernel is built for {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_aligned(name, t)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

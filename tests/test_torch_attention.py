@@ -6,6 +6,17 @@ mode, over the shape sweeps of ``tests/test_kernels.py``.
 Tolerances are those of ``tests/test_kernels.py``: float32 2e-3 (blockwise
 online softmax against one softmax), bfloat16 5e-2.  Against the jnp
 oracle, whose arithmetic the port repeats, float32 agrees to 1e-5.
+
+The CUDA kernels' own arithmetic, rehearsed in plain PyTorch
+(``flash_tiled_ref``: 64-key tiles, bf16 products in f32, the scale after
+the product, p split into bf16 hi + lo; ``decode_tiled_ref``: the same
+tile steps for the newest token's row, the bf16 decode instance;
+``decode_chunked_ref``: partials per chunk of cache slots and their
+combine, the f32 decode instance), is held to the plain versions
+and to the Pallas kernels run on the inputs' exact float32 values, at the
+tolerances the kernels meet on the card (``ATTN_TOL``, as in
+``tests/test_torch_cuda.py``): float32 2e-3; bfloat16 rtol 4e-3 (one
+output rounding, at most 2**-9 relative), atol 5e-4.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,12 +28,16 @@ from repro.kernels.decode_attn.ref import decode_attention_ref as jdecode_ref
 from repro.kernels.flash_attn.kernel import flash_attention_pallas
 from repro.kernels.flash_attn.ref import mha_ref as jmha_ref
 from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+from repro_torch.kernels import build
 from repro_torch.kernels.decode_attn import kernel as dkernel
+from repro_torch.kernels.decode_attn import ref as dref
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.kernels.flash_attn import kernel as fkernel
+from repro_torch.kernels.flash_attn import ref as fref
 from repro_torch.kernels.flash_attn.ops import flash_attention
 
 T = torch.from_numpy
+ATTN_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (4e-3, 5e-4)}  # (rtol, atol)
 
 
 @pytest.mark.parametrize("b,h,hkv,s,dh", [
@@ -128,3 +143,158 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         dkernel.decode_attention_cuda(q[:, :, 0], q, q, torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="tensors on"):
         flash_attention(q, q.to("meta"), q)
+
+
+# ------------------------------------------- the kernels' arithmetic on the CPU
+
+
+def _attn_close(got, want, dtype):
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(np.asarray(got, dtype=np.float32),
+                               np.asarray(want, dtype=np.float32), rtol=rtol, atol=atol)
+
+
+def _inputs(seed, dtype, *shapes):
+    """Standard-normal tensors of ``dtype`` made with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [T(rng.normal(size=shape).astype(np.float32)).to(dtype) for shape in shapes]
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 77])
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tiled_ref_matches_plain_and_pallas(s, g, dtype):
+    b, hkv, dh = 2, 2, 64
+    q, k, v = _inputs(10 * s + g, dtype, (b, hkv * g, s, dh), (b, hkv, s, dh),
+                      (b, hkv, s, dh))
+    exact = [t.float() for t in (q, k, v)]
+    got = fref.flash_tiled_ref(q, k, v)
+    assert got.dtype == dtype and got.shape == q.shape
+    _attn_close(got.float(), fref.mha_ref(*exact), dtype)
+    pallas = flash_attention_pallas(*(jnp.asarray(t.numpy()) for t in exact),
+                                    tq=64, tk=64, interpret=True)
+    _attn_close(got.float(), pallas, dtype)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 512])
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiled_ref_matches_plain(s, g, causal):
+    """Both instances' arithmetic at head dim 128 (where scaling the logits
+    after the product differs from scaling q by one f32 rounding)."""
+    b, hkv, dh = 1, 2, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _inputs(s + g, dtype, (b, hkv * g, s, dh), (b, hkv, s, dh),
+                          (b, hkv, s, dh))
+        got = fref.flash_tiled_ref(q, k, v, causal=causal)
+        _attn_close(got.float(), fref.mha_ref(q.float(), k.float(), v.float(),
+                                              causal=causal), dtype)
+
+
+def test_flash_bf16_keeps_p_at_f32_precision():
+    """Why the kernel splits p into bf16 hi + lo: at the serving engine's
+    prefill shape, rounding p once to bf16 before P V breaks the bf16
+    tolerance, the split holds it."""
+    b, h, hkv, s, dh = 8, 12, 4, 77, 64
+    q, k, v = _inputs(5, torch.bfloat16, (b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh))
+    want = fref.mha_ref(q.float(), k.float(), v.float())
+    _attn_close(fref.flash_tiled_ref(q, k, v).float(), want, torch.bfloat16)
+    qf, kf, vf = q.float(), k.float().repeat_interleave(3, 1), v.float().repeat_interleave(3, 1)
+    logits = (qf @ kf.transpose(-1, -2) * dh ** -0.5).masked_fill(
+        ~torch.ones(s, s, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    once = (p.to(torch.bfloat16).float() @ vf / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+    with pytest.raises(AssertionError):
+        _attn_close(once.float(), want, torch.bfloat16)
+
+
+def _edge_pos(s, chunk, b):
+    """Valid lengths at the chunk edges 1, C-1, C, C+1 and S, cut to [1, S],
+    in one batch (so whole chunks are empty for one row and live for
+    another), cycled to ``b`` rows."""
+    edges = [min(max(p, 1), s) for p in (1, chunk - 1, chunk, chunk + 1, s)]
+    return torch.tensor([edges[i % len(edges)] for i in range(b)], dtype=torch.int32)
+
+
+DECODE_REFS = {"chunked": lambda q, k, v, pos, chunk: dref.decode_chunked_ref(
+                   q, k, v, pos, chunk=chunk),
+               "tiled": lambda q, k, v, pos, chunk: dref.decode_tiled_ref(q, k, v, pos)}
+# each instance's arithmetic in its dtype, the chunked one in both
+DECODE_CASES = [("chunked", torch.float32), ("chunked", torch.bfloat16),
+                ("tiled", torch.bfloat16)]
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 77])
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("ref,dtype", DECODE_CASES)
+def test_decode_refs_match_plain_and_pallas(s, g, ref, dtype):
+    b, hkv, dh, chunk = 5, 2, 64, dkernel.CHUNK
+    q, k, v = _inputs(10 * s + g, dtype, (b, hkv * g, dh), (b, hkv, s, dh), (b, hkv, s, dh))
+    pos = _edge_pos(s, chunk, b)
+    exact = [t.float() for t in (q, k, v)]
+    got = DECODE_REFS[ref](q, k, v, pos, chunk)
+    assert got.dtype == dtype and got.shape == q.shape
+    _attn_close(got.float(), dref.decode_attention_ref(*exact, pos), dtype)
+    pallas = decode_attention_pallas(*(jnp.asarray(t.numpy()) for t in exact),
+                                     jnp.asarray(pos.numpy()), tk=chunk, interpret=True)
+    _attn_close(got.float(), pallas, dtype)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("ref,dtype", DECODE_CASES)
+def test_decode_refs_match_plain_at_512(chunk, g, ref, dtype):
+    b, hkv, s, dh = 7, 2, 512, 128
+    q, k, v = _inputs(chunk + g, dtype, (b, hkv * g, dh), (b, hkv, s, dh), (b, hkv, s, dh))
+    pos = _edge_pos(s, chunk, b)
+    pos[5:] = torch.tensor([77, 511], dtype=torch.int32)
+    got = DECODE_REFS[ref](q, k, v, pos, chunk)
+    _attn_close(got.float(), dref.decode_attention_ref(q.float(), k.float(), v.float(), pos),
+                dtype)
+
+
+@pytest.mark.parametrize("s", [1, 64, 65, 129])
+def test_decode_tiled_ref_is_the_prefill_row(s):
+    """The bf16 decode instance runs the prefill kernel's tile steps on the
+    newest token's row: the same arithmetic as ``flash_tiled_ref``'s last
+    row (on the card the two kernels agree bit for bit; on the CPU torch's
+    products round by shape, so this holds them to a few f32 ulps before
+    the bf16 output rounding)."""
+    b, hkv, g, dh = 2, 2, 3, 64
+    q, k, v = _inputs(s, torch.bfloat16, (b, hkv * g, s, dh), (b, hkv, s, dh),
+                      (b, hkv, s, dh))
+    last = fref.flash_tiled_ref(q, k, v)[:, :, -1]
+    pad = torch.full((b, hkv, 7, dh), float("nan"), dtype=torch.bfloat16)
+    got = dref.decode_tiled_ref(q[:, :, -1], torch.cat([k, pad], 2), torch.cat([v, pad], 2),
+                                torch.full((b,), s, dtype=torch.int32))
+    np.testing.assert_allclose(got.float().numpy(), last.float().numpy(), rtol=2 ** -7,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("ref,dtype", DECODE_CASES)
+def test_decode_refs_ignore_slots_past_pos(ref, dtype):
+    """Slots at or past pos, empty chunks and a row with pos 0 contribute
+    nothing: the output is bit-identical with 999 keys and NaN values there,
+    and the pos-0 row is zeros."""
+    b, hkv, g, s, dh = 4, 2, 3, 100, 64
+    q, k, v = _inputs(9, dtype, (b, hkv * g, dh), (b, hkv, s, dh), (b, hkv, s, dh))
+    pos = torch.tensor([0, 1, 33, 100], dtype=torch.int32)
+    got = DECODE_REFS[ref](q, k, v, pos, 32)
+    k2, v2 = k.clone(), v.clone()
+    for i, p in enumerate(pos.tolist()):
+        k2[i, :, p:], v2[i, :, p:] = 999.0, float("nan")
+    assert torch.equal(DECODE_REFS[ref](q, k2, v2, pos, 32), got)
+    assert not got[0].any() and torch.isfinite(got).all()
+
+
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """An edited header the kernels include gives every library a new name,
+    so it is rebuilt."""
+    assert [p.name for p in build.HEADERS] == ["attn_tile.cuh", "hopper_ptx.cuh"]
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(build, "HEADERS", (header,))
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    header.write_text("// two\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)

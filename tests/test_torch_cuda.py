@@ -132,9 +132,16 @@ def _attn_close(got, want, dtype):
                                rtol=rtol, atol=atol)
 
 
+# GQA groups G in {1, 2, 3, 4, 8} at the tile edges S in {2, 63, 64, 65, 129}:
+# the bf16 kernel packs the G heads of a KV head into 64-row tiles by position
+FLASH_EDGES = [(2, 2 * g, 2, s, 64) for g in (1, 2, 3, 4, 8) for s in (2, 63, 64, 65, 129)] \
+    + [(1, 2 * g, 2, s, 128) for g in (2, 8) for s in (65, 129)]
+
+
 @pytest.mark.parametrize("b,h,hkv,s,dh", [
     (2, 4, 2, 256, 64), (1, 8, 1, 128, 128), (1, 4, 4, 100, 64), (2, 2, 2, 64, 128),
-    (3, 12, 4, 77, 64), (8, 12, 4, 77, 64), (1, 3, 1, 1, 64), (1, 6, 2, 1000, 128)])
+    (3, 12, 4, 77, 64), (8, 12, 4, 77, 64), (1, 3, 1, 1, 64), (1, 6, 2, 1000, 128),
+    *FLASH_EDGES])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda_device, b, h, hkv, s, dh, causal, dtype):
@@ -171,6 +178,53 @@ def test_decode_attention_matches_plain(cuda_device, b, h, hkv, s, dh, dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("s,dh", [(32, 64), (33, 128), (512, 64), (512, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_chunk_edges(cuda_device, g, s, dh, dtype):
+    """pos at the edges of the kernel's chunks of cache slots, mixed in one
+    batch (whole chunks empty for one row and live for another), a row with
+    pos 0 (zeros, as the Pallas kernel gives), and two calls bit-identical
+    (the partials combine in a fixed order)."""
+    c = dkernel.CHUNK
+    pos = torch.tensor([min(p, s) for p in (1, c - 1, c, c + 1, 2 * c + 1, s, s, 0)],
+                       dtype=torch.int32, device=cuda_device)
+    b, hkv = len(pos), 2
+    gen = torch.Generator(device=cuda_device).manual_seed(100 * g + s)
+    q = torch.randn((b, hkv * g, dh), generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn((b, hkv, s, dh), generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    reset_launch_counts()
+    got = dkernel.decode_attention_cuda(q, k, v, pos)
+    assert launch_counts()["decode_attn"] == 1
+    live = pos > 0
+    _attn_close(got[live], dref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                                     pos)[live], dtype)
+    assert not got[~live].any()
+    assert torch.equal(dkernel.decode_attention_cuda(q, k, v, pos), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 129])
+@pytest.mark.parametrize("g", [1, 3, 8, 20])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_bf16_decode_is_the_prefill_row_bit_for_bit(cuda_device, s, g, dh):
+    """A bf16 decode step over a cache of S tokens gives exactly the prefill
+    kernel's output for the newest token (the serving engine's decode then
+    agrees with a forward pass, which bf16 rounding would not survive)."""
+    b, hkv = 2, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(100 * g + s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+               for shape in ((b, hkv * g, s, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
+    last = fkernel.flash_attention_cuda(q, k, v)[:, :, -1]
+    pad = torch.full((b, hkv, 11, dh), float("nan"), dtype=torch.bfloat16, device=cuda_device)
+    pos = torch.full((b,), s, dtype=torch.int32, device=cuda_device)
+    got = dkernel.decode_attention_cuda(q[:, :, -1].contiguous(), torch.cat([k, pad], 2),
+                                        torch.cat([v, pad], 2), pos)
+    assert torch.equal(got, last)
+    torch.cuda.synchronize()
+
+
 def test_attention_wrappers_refuse_other_head_dims(cuda_device):
     q = torch.zeros((1, 4, 8, 32), device=cuda_device)
     kv = torch.zeros((1, 2, 8, 32), device=cuda_device)
@@ -187,6 +241,11 @@ def test_attention_wrappers_refuse_other_head_dims(cuda_device):
         dkernel.decode_attention_cuda(torch.zeros((1, 4, 64), device=cuda_device),
                                       torch.zeros((1, 3, 16, 64), device=cuda_device),
                                       torch.zeros((1, 3, 16, 64), device=cuda_device), pos)
+    # a contiguous view that starts inside a row cannot be read in 16-byte vectors
+    kv16 = torch.zeros(1 + 2 * 8 * 64, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        fkernel.flash_attention_cuda(kv16[1:].view(1, 2, 8, 64), kv16[1:].view(1, 2, 8, 64),
+                                     kv16[1:].view(1, 2, 8, 64))
 
 
 SSD_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (4e-3, 1e-3)}  # (rtol, atol)
