@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n-fact 6000000] [--seed 0]
+    python3 chip_smoke.py [--n-fact 6000000] [--seed 0] [--baseline DIR]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. build   — compile every CUDA kernel from the sources in this checkout
-             (one nvcc per source, all started together); print each
-             attention kernel instance's registers, spills and static
-             shared memory from ``ptxas -v``, and its HMMA (tensor-core)
-             instruction count from ``cuobjdump -sass`` where installed
-             (fails if a bf16 flash instance has none).
+             (one nvcc per source, all started together); print the
+             registers, spills and static shared memory from ``ptxas -v``
+             of each instance of the tensor-core kernels (attention, SSD
+             scan) and of kernel B, and its HMMA (tensor-core) instruction
+             count from ``cuobjdump -sass`` where installed (fails if a
+             bf16 flash or an SSD-scan instance has none).  With
+             ``--baseline DIR`` (a checkout of an earlier commit with PR
+             14's kernel entries) also DIR's ssd_scan and seg_agg, whose
+             times are printed beside this checkout's.
 2. kernels — hold each kernel against its plain PyTorch version on the card.
              seg_agg / seg_agg_fused: a small case with NaN values,
              NaN-sentinel and pad ranges and an empty mask, then a sweep at
@@ -31,21 +35,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
              prompts of 512 tokens; decode at pos 512).  The plain versions
              run on the inputs' exact
              float32 values; tolerances (rtol, atol): float32 (2e-3, 2e-3),
-             bfloat16 (4e-3, 5e-4).  ssd_scan: S in {1, 77, 100, 128, 300,
-             4096} over (N, P, H) in {(16, 16, 1), (64, 64, 3), (128, 64,
+             bfloat16 (4e-3, 5e-4).  ssd_scan: S in {1, 77, 128, 300, 4096}
+             over (N, P, H) in {(16, 16, 1), (64, 64, 3), (128, 64,
              48), (128, 16, 3)}, dt small (0.001-0.1) and as large as
              mamba2's init gives (up to 2), y with and without the final
              state; against the sequential ``ssd_ref`` where S <= 300, else
              ``ssd_chunked`` + ``ssd_final_state``; tolerances (rtol, atol)
              float32 (1e-3, 1e-3), bfloat16 y (4e-3, 1e-3); NaN in the
              storage past S changes nothing; again at the main path's
-             shapes (8 prompts, 48 heads, P 64, N 128, bf16 x).  Times each
-             kernel, its plain version and, where one exists, one PyTorch
-             library call computing the same function, at the main path's
-             shapes: device time per call under ``torch.profiler``; for
-             the attention kernels also kernel and library at the
-             engine's ceiling (printed first), and the host microseconds
-             per call of the ``decode_attention`` dispatcher and of SDPA.
+             shapes (8 prompts, 48 heads, P 64, N 128, bf16 x) and at the
+             engine's ceiling (8 prompts of 512).  Times each kernel, its
+             plain version and, where one exists, one PyTorch library call
+             computing the same function, at the main path's shapes:
+             device time per call under ``torch.profiler``; for the
+             attention kernels also kernel and library at the engine's
+             ceiling, for the SSD scan kernel and plain there (printed
+             first), and the host microseconds per call of the
+             ``decode_attention`` dispatcher and of SDPA.  The SSD scan's
+             bound takes its operations at the bf16 tensor-core rate (its
+             bf16 instance's products run there), with the f32 CUDA-core
+             bound beside it.
 3. llm     — canonicalizer-100m at full width (12 layers, d_model 768, 12/4
              heads, head dim 64, d_ff 2048, vocab 8192), weights initialised
              from ``--seed``: (a) teacher forcing on the card, prefill
@@ -85,6 +94,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
              the host-mask branch.  Every served table is checked against
              the numpy oracle; the seg_agg launch counts are read from this
              phase alone.  Prints per-stage p50/p95 of the request path.
+             Kernel B's launches are recorded by shape (N, M, P, K, S, G,
+             op); at each shape, on random inputs, kernel B is checked
+             against its plain version, run twice (bit-identical where its
+             slots are per thread or warp, and for MIN/MAX everywhere) and
+             timed beside its byte bound: the table and launches x (ms -
+             bound).
 6. nl      — the SSB mixed stream (SQL and NL) through a fresh tenant whose
              NL canonicalizer is ``MemoizedNL(SimulatedLLM)``, on the same
              dataset: every served table against the numpy oracle, no false
@@ -228,11 +243,17 @@ def _instance(mangled: str) -> str:
     return mangled
 
 
-def build_info(names=("flash_attn", "decode_attn")) -> dict:
+# the kernels whose ptxas and SASS figures [build] prints: the tensor-core
+# ones and the redesigned kernel B (instance names start with these)
+BUILD_SHOWN = ("flash_attn_", "decode_", "ssd_scan_kernel", "seg_agg_fused_kernel")
+
+
+def build_info(names=("flash_attn", "decode_attn", "ssd_scan", "seg_agg")) -> dict:
     """Per kernel instance of each library: registers, spill bytes and
     shared memory as ``ptxas -v`` reported them in the build log, and the
     count of HMMA (tensor-core) instructions in its SASS where
-    ``cuobjdump`` is installed (None where it is not)."""
+    ``cuobjdump`` is installed (None where it is not).  Fails if a bf16
+    flash or an SSD-scan instance has none (tf32 products are HMMA too)."""
     import re
     import shutil
 
@@ -264,14 +285,15 @@ def build_info(names=("flash_attn", "decode_attn")) -> dict:
                 cur["hmma"] = 0
             elif cur is not None and "HMMA" in line:
                 cur["hmma"] += 1
-    bf16_flash = [i for i in info if i.startswith("flash_attn_bf16_kernel")]
-    if not bf16_flash:
-        raise AssertionError(f"no bf16 flash instance among {sorted(info)}")
+    tensor_core = [i for i in info if i.startswith(("flash_attn_bf16_kernel",
+                                                     "ssd_scan_kernel"))]
+    if len(tensor_core) < 3:
+        raise AssertionError(f"no bf16 flash or SSD-scan instance among {sorted(info)}")
     for inst, row in info.items():
         row.setdefault("hmma", None)
-        if inst in bf16_flash and row["hmma"] == 0:
+        if inst in tensor_core and row["hmma"] == 0:
             raise AssertionError(f"{inst}: no HMMA in its SASS")
-    return info
+    return {i: r for i, r in info.items() if i.startswith(BUILD_SHOWN)}
 
 
 def _bounds(gen, s, p, k, dev, lo=0, hi=10):
@@ -338,11 +360,78 @@ def kernel_checks(n_fact: int, dev, gen) -> dict:
     return errs
 
 
-def kernel_times(n_fact: int, dev, gen, iters: int) -> dict:
+class Baseline:
+    """The SSD-scan and seg_agg kernels of an earlier checkout (``--baseline
+    DIR``, with PR 14's C entries), built from DIR's sources into
+    ``build/kernels/baseline/``, to time the redesigned kernels against in
+    the same run on the same card."""
+
+    def __init__(self, root: Path):
+        import ctypes
+
+        from repro_torch.kernels import build
+
+        out = build.BUILD_DIR / "baseline"
+        out.mkdir(parents=True, exist_ok=True)
+        jobs = {}
+        for name in ("ssd_scan", "seg_agg"):
+            src = root / "src" / "repro_torch" / "kernels" / name / "csrc" / f"{name}.cu"
+            jobs[name] = (subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out / f"lib{name}.so")
+        self.libs = {}
+        for name, (proc, so) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for the baseline {name}:\n{log}")
+            self.libs[name] = ctypes.CDLL(str(so))
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.libs["ssd_scan"].ssd_scan_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
+                                                          I, P]
+        self.libs["seg_agg"].seg_agg_fused_launch.argtypes = [P, P, P, P, P, L, I, I, I, I, I,
+                                                              I, P]
+
+    @staticmethod
+    def _stream(t) -> int:
+        import torch
+
+        return torch.cuda.current_stream(t.device).cuda_stream
+
+    def fused(self, values, ids, pred, bounds, num_groups: int, op: str):
+        import torch
+
+        n, m = values.shape
+        s, p, k, _ = bounds.shape
+        out = torch.empty((s, num_groups, m), device=values.device)
+        rc = self.libs["seg_agg"].seg_agg_fused_launch(
+            values.data_ptr(), ids.data_ptr(), pred.data_ptr(), bounds.data_ptr(),
+            out.data_ptr(), n, m, p, k, s, num_groups, {"sum": 0, "min": 1, "max": 2}[op],
+            self._stream(values))
+        if rc:
+            raise RuntimeError(f"baseline seg_agg_fused: CUDA error {rc}")
+        return out
+
+    def ssd(self, x, dt, A, Bm, Cm):
+        import torch
+
+        b, s, h, p = x.shape
+        y = torch.empty_like(x)
+        state = torch.empty((b, h, p, Bm.shape[-1]), device=x.device)
+        rc = self.libs["ssd_scan"].ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), state.data_ptr(), b, h, s, p, Bm.shape[-1],
+            int(x.dtype == torch.bfloat16), self._stream(x))
+        if rc:
+            raise RuntimeError(f"baseline ssd_scan: CUDA error {rc}")
+        return y, state
+
+
+def kernel_times(n_fact: int, dev, gen, iters: int, baseline=None) -> dict:
     """Kernel, plain and library times at the main path's shapes: kernel A
     at the host-mask request's (sum block [COUNT, SUM], 5 regions), kernel
     B at the dashboard refresh's (sum block [COUNT, SUM, AVG], 5 regions,
-    one time-window predicate, 6 tiles)."""
+    one time-window predicate, 6 tiles), with the baseline's time where one
+    is given."""
     import torch
 
     from repro_torch.kernels.seg_agg import kernel as K
@@ -375,6 +464,9 @@ def kernel_times(n_fact: int, dev, gen, iters: int) -> dict:
         "bytes": byts, "ops": n * p * s * 2 + n * m * s,
         "shape": f"values ({n},{m}) ids ({n},) pred ({n},{p}) bounds {tuple(b.shape)} G={g} sum",
     }
+    if baseline is not None:
+        out["seg_agg_fused"]["pr14_ms"] = device_ms(
+            lambda: baseline.fused(v, ids, pred, b, g, "sum"), iters)
     return {k: with_bound(t, F32_OPS_PER_S) for k, t in out.items()}
 
 
@@ -610,7 +702,7 @@ def ssd_checks(dev, gen) -> dict:
     errs = {"float32": 0.0, "bfloat16": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        for s in (1, 77, 100, 128, 300, 4096):
+        for s in (1, 77, 128, 300, 4096):
             for n, p, h in ((16, 16, 1), (64, 64, 3), (128, 64, 48), (128, 16, 3)):
                 for dt_hi in (0.1, 2.0):
                     b = 1 if s == 4096 else 2
@@ -648,30 +740,78 @@ def ssd_ops(b: int, s: int, h: int, p: int, n: int, chunk: int = 128) -> int:
     return min(chunked, 4 * b * h * s * n * p)
 
 
-def ssd_times(dev, gen, plen: int, iters: int) -> dict:
+def ssd_times(dev, gen, plen: int, cache: int, iters: int, baseline=None) -> dict:
     """The SSD-scan kernel against its plain version, then kernel and plain
     times, at the main path's shapes: mamba2-780m's prefill of the first
     engine batch (8 prompts padded to ``plen`` tokens, 48 heads, P 64, N
-    128, bf16 x, the final state written), dt as large as its init gives."""
+    128, bf16 x, the final state written), dt as large as its init gives;
+    ``reach`` holds the same at the engine's ceiling, 8 prompts of
+    ``cache`` tokens.  The bound takes the operations at the bf16 tensor
+    cores' rate, where the bf16 kernel runs its products; ``bound_f32_ms``
+    keeps PR 13-14's bound at the f32 CUDA-core rate beside it."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan import ref as SR
 
-    b, s, h, p, n = 8, plen, 48, 64, 128
-    x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, b, s, h, p, n, torch.bfloat16, 2.0)
-    shape = f"x ({b},{s},{h},{p}) bf16 dt ({b},{s},{h}) B/C ({b},{s},{n}), state out"
-    t = {
-        "max_abs_err": _ssd_check(x, dt, A, Bm, Cm, f"ssd main path {shape}"),
-        **timed(lambda: SK.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True),
-                lambda: (SR.ssd_chunked(x, dt, A, Bm, Cm),
-                         SR.ssd_final_state(x, dt, A, Bm)), None, iters),
-        # x and y in bf16, dt, A, B, C and the final state in f32, each once
-        "bytes": 2 * 2 * b * s * h * p + 4 * (b * s * h + h + 2 * b * s * n + b * h * p * n),
-        "ops": ssd_ops(b, s, h, p, n),
-        "shape": shape,
-    }
-    return {"ssd_scan": with_bound(t, F32_OPS_PER_S)}
+    rows = {}
+    for s in (plen, cache):
+        b, h, p, n = 8, 48, 64, 128
+        x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, b, s, h, p, n, torch.bfloat16, 2.0)
+        shape = f"x ({b},{s},{h},{p}) bf16 dt ({b},{s},{h}) B/C ({b},{s},{n}), state out"
+        t = {
+            "max_abs_err": _ssd_check(x, dt, A, Bm, Cm, f"ssd {shape}"),
+            **timed(lambda: SK.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True),
+                    lambda: (SR.ssd_chunked(x, dt, A, Bm, Cm),
+                             SR.ssd_final_state(x, dt, A, Bm)), None, iters),
+            # x and y in bf16, dt, A, B, C and the final state in f32, each once
+            "bytes": 2 * 2 * b * s * h * p + 4 * (b * s * h + h + 2 * b * s * n + b * h * p * n),
+            "ops": ssd_ops(b, s, h, p, n),
+            "shape": shape,
+        }
+        if baseline is not None:
+            t["pr14_ms"] = device_ms(lambda: baseline.ssd(x, dt, A, Bm, Cm), max(3, iters // 4))
+        t["bound_f32_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / F32_OPS_PER_S) * 1e3
+        rows[s] = with_bound(t, BF16_OPS_PER_S)
+    main = rows[plen]
+    main["reach"] = rows[cache]
+    main["max_abs_err"] = max(main["max_abs_err"], rows[cache]["max_abs_err"])
+    return {"ssd_scan": main}
+
+
+def fused_shape_table(counts, dev, gen, iters: int, baseline=None) -> list[dict]:
+    """Kernel B at every shape the serve phase launched it at (``counts``:
+    (N, M, P, K, S, G, op) -> launches), on random inputs of that shape:
+    checked against its plain version, two calls compared bit for bit (they
+    must be identical where the slots are per thread or warp, and for MIN/MAX
+    everywhere), its device ms (and the baseline's), and its byte bound
+    N (M+1+P) 4 + S G M 4 + bounds over the HBM rate."""
+    import torch
+
+    from repro_torch.kernels.seg_agg import kernel as K
+    from repro_torch.kernels.seg_agg import ref as R
+
+    table = []
+    for (n, m, p, k, s, g, op), launches in sorted(counts.items(), key=lambda kv: -kv[1]):
+        v = torch.rand(n, m, generator=gen, device=dev)
+        ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
+        pred = torch.randint(0, 10, (n, p), generator=gen, device=dev).float()
+        b = _bounds(gen, s, p, k, dev)
+        what = f"fused shape N={n} M={m} P={p} K={k} S={s} G={g} {op}"
+        got = K.seg_agg_fused_cuda(v, ids, pred, b, g, op)
+        err = compare(got, R.seg_agg_batch_ref(v, ids, pred, b, g, op), what)
+        tier = K.fused_tier(n, m, p, k, s, g, op)
+        same = torch.equal(K.seg_agg_fused_cuda(v, ids, pred, b, g, op), got)
+        if not same and (tier in K.DETERMINISTIC or op != "sum"):
+            raise AssertionError(f"{what}: two calls differ ({tier} slots)")
+        row = {"shape": [n, m, p, k, s, g, op], "launches": launches, "tier": tier,
+               "bit_identical": same, "max_abs_err": err,
+               "ms": device_ms(lambda: K.seg_agg_fused_cuda(v, ids, pred, b, g, op), iters),
+               "bound_ms": (n * (m + 1 + p) + s * g * m + b.numel()) * 4 / HBM_BYTES_PER_S * 1e3}
+        if baseline is not None:
+            row["pr14_ms"] = device_ms(lambda: baseline.fused(v, ids, pred, b, g, op), iters)
+        table.append(row)
+    return table
 
 
 # ---------------------------------------------------------------- oracle
@@ -989,6 +1129,33 @@ HOST_MASK = ("SELECT c_region, SUM(lo_revenue) AS rev, COUNT(*) AS n FROM lineor
              "WHERE lo_extendedprice > 5000.25 GROUP BY c_region")
 
 
+class FusedShapes:
+    """Within its ``with``, the shape (N, M, P, K, S, G, op) of every kernel
+    B launch, counted: ``kernel.seg_agg_fused_cuda`` is wrapped for the
+    block's duration (one launch per chunk of up to 64 signatures)."""
+
+    def __enter__(self):
+        import collections
+
+        from repro_torch.kernels.seg_agg import kernel
+
+        self.kernel, self.real = kernel, kernel.seg_agg_fused_cuda
+        self.counts: collections.Counter = collections.Counter()
+
+        def recording(values, ids, pred_cols, bounds, num_groups, op="sum"):
+            s, p, k, _ = bounds.shape
+            for s0 in range(0, s, kernel.MAX_SIGNATURES):
+                self.counts[(values.shape[0], values.shape[1], p, k,
+                             min(kernel.MAX_SIGNATURES, s - s0), num_groups, op)] += 1
+            return self.real(values, ids, pred_cols, bounds, num_groups, op)
+
+        kernel.seg_agg_fused_cuda = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.seg_agg_fused_cuda = self.real
+
+
 def serve_phase(wl, oracle) -> dict:
     import numpy as np
     import torch
@@ -1004,17 +1171,21 @@ def serve_phase(wl, oracle) -> dict:
     t0 = time.perf_counter()
     reset_launch_counts()
     results = []
-    for name, sqls in serve.sql_streams(wl).items():
-        results += serve.replay(tenant, sqls, batch=8)
-    before = launch_counts()
-    groups = tenant.backend.batch_groups
-    tiles = run_pipeline(tenant, [QueryRequest(sql=DASHBOARD.format(y=y))
-                                  for y in range(1992, 1998)])
-    mid = launch_counts()
-    host = run_pipeline(tenant, [QueryRequest(sql=HOST_MASK)])
-    torch.cuda.synchronize()
+    with FusedShapes() as shapes:
+        for name, sqls in serve.sql_streams(wl).items():
+            results += serve.replay(tenant, sqls, batch=8)
+        before = launch_counts()
+        groups = tenant.backend.batch_groups
+        tiles = run_pipeline(tenant, [QueryRequest(sql=DASHBOARD.format(y=y))
+                                      for y in range(1992, 1998)])
+        mid = launch_counts()
+        host = run_pipeline(tenant, [QueryRequest(sql=HOST_MASK)])
+        torch.cuda.synchronize()
     launches = launch_counts()
     secs["serve"] = time.perf_counter() - t0
+    if sum(shapes.counts.values()) != launches["seg_agg_fused"]:
+        raise AssertionError(f"{sum(shapes.counts.values())} kernel B shapes recorded for "
+                             f"{launches['seg_agg_fused']} launches")
     results += tiles + host
 
     if [r.status for r in tiles] != ["miss"] * 6 or not all(r.batched for r in tiles):
@@ -1051,6 +1222,7 @@ def serve_phase(wl, oracle) -> dict:
     s = tenant.cache.stats
     return {
         "launches": launches,
+        "fused_shapes": shapes.counts,
         "summary": {
             "n_fact": wl.dataset.fact.num_rows, "requests": len(results), "statuses": statuses,
             "hit_rate": s.hit_rate, **checked,
@@ -1223,6 +1395,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n-fact", type=int, default=6_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="a checkout of an earlier commit (PR 14's kernel entries): its "
+                         "ssd_scan and kernel B are timed beside this checkout's")
     args = ap.parse_args(argv)
 
     try:
@@ -1244,7 +1419,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build_all()
     print(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.1f} s; card: {card}")
-    print(f"[build] attention kernels (ptxas -v, SASS): {json.dumps(build_info())}")
+    print(f"[build] tensor-core and kernel B instances (ptxas -v, SASS): "
+          f"{json.dumps(build_info())}")
+    baseline = None if args.baseline is None else Baseline(args.baseline.resolve())
 
     t0 = time.perf_counter()
     wl = ssb.build(n_fact=args.n_fact, seed=args.seed)
@@ -1259,23 +1436,28 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     errs = kernel_checks(args.n_fact, dev, gen)
     sweeps = {**attention_checks(dev, gen), "ssd_scan": ssd_checks(dev, gen)}
-    times = {**kernel_times(args.n_fact, dev, gen, args.iters),
+    times = {**kernel_times(args.n_fact, dev, gen, args.iters, baseline),
              **attention_times(dev, gen, plen, MAX_NEW_TOKENS, MAX_LEN, 10 * args.iters),
-             **ssd_times(dev, gen, plen, 10 * args.iters)}
+             **ssd_times(dev, gen, plen, MAX_LEN, 10 * args.iters, baseline)}
     for name, by_dtype in sweeps.items():
         errs[name] = max(*by_dtype.values(), times[name]["max_abs_err"])
     print(f"[kernels] {time.perf_counter() - t0:.1f} s; max abs err {json.dumps(errs)}; "
           f"attention and ssd sweeps by dtype {json.dumps(sweeps)}, at the main path's "
           f"shapes (bf16) {json.dumps({k: times[k]['max_abs_err'] for k in sweeps})}")
+    def extra(t) -> str:
+        return "".join(f", {k} {t[k]:.5f}" for k in ("pr14_ms", "bound_f32_ms") if k in t)
+
     for name, t in times.items():
         if "reach" in t:  # the engine's ceiling, before its main-path line
             r = t["reach"]
+            plain = f"plain {r['plain_ms']:.4f}" if "plain_ms" in r \
+                else f"library {r['library_ms']:.4f}"
             print(f"[kernels] {name} reach {r['shape']}: device ms per call: kernel "
-                  f"{r['ms']:.4f}, library {r['library_ms']:.4f}; "
-                  f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
+                  f"{r['ms']:.4f}, {plain}; bound {r['bound_ms']:.5f} ({r['bound_by']})"
+                  f"{extra(r)}")
         print(f"[kernels] {name} {t['shape']}: device ms per call: kernel "
               f"{t['ms']:.4f}, plain {t['plain_ms']:.4f}, library {t['library_ms']}; "
-              f"bound {t['bound_ms']:.5f} ({t['bound_by']})")
+              f"bound {t['bound_ms']:.5f} ({t['bound_by']}){extra(t)}")
         if "host_us" in t:
             print(f"[kernels] {name} host us per call: {json.dumps(t['host_us'])}")
 
@@ -1289,6 +1471,17 @@ def main(argv=None) -> int:
           f"in {time.perf_counter() - t0:.1f} s")
     served = serve_phase(wl, oracle)
     print(f"[serve] {json.dumps(served['summary'])} launches {json.dumps(served['launches'])}")
+    t0 = time.perf_counter()
+    table = fused_shape_table(served["fused_shapes"], dev, gen, args.iters, baseline)
+    for row in table:
+        print(f"[serve] seg_agg_fused shape {json.dumps(row)}")
+    gap = {k: sum(r["launches"] * (r[k] - r["bound_ms"]) for r in table)
+           for k in ("ms", "pr14_ms") if all(k in r for r in table)}
+    print(f"[serve] seg_agg_fused: {len(table)} shapes, "
+          f"{sum(r['launches'] for r in table)} launches, launches x (ms - bound) "
+          f"{json.dumps(gap)}, bit-identical repeats at "
+          f"{sum(r['bit_identical'] for r in table)} shapes, in "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     nl = nl_phase(wl, oracle)
     print(f"[nl] {json.dumps(nl['summary'])} launches {json.dumps(nl['launches'])} "

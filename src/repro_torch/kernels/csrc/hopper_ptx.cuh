@@ -1,7 +1,8 @@
 // PTX helpers shared by the port's Hopper kernels (sm_90a): asynchronous
-// 16-byte copies into shared memory, ldmatrix, the bf16 tensor-core
-// product mma.sync m16n8k16, ex2.approx, and a once-per-device opt-in to
-// more than 48 KB of dynamic shared memory.  Included by the kernel
+// 16- and 4-byte copies into shared memory, ldmatrix, the tensor-core
+// products mma.sync m16n8k16 (bf16) and m16n8k8 (tf32) with the split of an
+// f32 operand into two tf32 halves, ex2.approx, and a once-per-device
+// opt-in to more than 48 KB of dynamic shared memory.  Included by the kernel
 // sources beside their own csrc/ directories; `kernels/build.py` hashes
 // this file into every library's name, so an edit here rebuilds them all.
 #pragma once
@@ -23,6 +24,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // valid address).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory, through L1; src_bytes = 0 writes
+// a zero and reads nothing (src must still be a valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -66,6 +75,32 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d (16x8 f32) += a (16x8 tf32, row-major) * b (8x8 tf32, column-major).
+// With g = lane / 4, t = lane % 4: a = {(g, t), (g+8, t), (g, t+4),
+// (g+8, t+4)}, b = {(t, g), (t+4, g)}, d as for mma_bf16.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An f32 value as two tf32 halves: hi = x with its low 13 bits cleared,
+// lo = x - hi (exact in f32).  The tensor core reads the top 19 bits of a
+// tf32 operand and ignores the rest, so lo goes in as it is and loses its
+// own low bits: about 20 bits of x reach the product, and three tf32
+// products (lo hi + hi lo + hi hi) keep an f32 product to ~2^-19 (3xTF32),
+// at two instructions per split.
+struct Tf32Pair {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Tf32Pair tf32_split(float x) {
+  const uint32_t hi = __float_as_uint(x) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
 }
 
 // two 8x8 b16 matrices, transposed; lanes 0..15 give the row addresses

@@ -31,6 +31,7 @@ from pathlib import Path
 import torch
 
 from .. import build
+from ..ablation import card, device_ms
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
 _TILE = _SRC.parents[2] / "csrc" / "attn_tile.cuh"  # the tile step it shares
@@ -96,23 +97,6 @@ def build_variants(parts) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    if total <= 0.0:
-        raise RuntimeError("the profiler traced no device time")
-    return total / iters
-
-
 def main(argv=None) -> int:
     import torch.nn.functional as F
 
@@ -127,9 +111,6 @@ def main(argv=None) -> int:
     b, h, hkv, dh = 8, 12, 4, 64
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
     for s in (args.plen, args.cache):
         q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(torch.bfloat16)
@@ -148,7 +129,7 @@ def main(argv=None) -> int:
         row["sdpa"] = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), args.iters)
         print(json.dumps({"shape": f"q ({b},{h},{s},{dh}) k/v ({b},{hkv},{s},{dh}) bf16 causal",
-                          "device_ms": row, "card": card}))
+                          "device_ms": row, "card": card()}))
     return 0
 
 

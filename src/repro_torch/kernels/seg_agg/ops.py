@@ -65,6 +65,12 @@ def _i32(t):
     return t.to(torch.int32).contiguous()
 
 
+def _aligned(t):
+    """``t``, copied where its data does not start on a 16-byte boundary:
+    kernel B stages its row columns with 16-byte copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def seg_agg(values, ids, mask, num_groups: int, op: str = "sum"):
     """Grouped aggregation: (N, M) values + (N,) ids -> (num_groups, M)."""
     _record_launch()
@@ -98,15 +104,15 @@ def seg_agg_fused(values, ids, pred_cols, bounds, num_groups: int,
     _record_launch()
     if _on_cuda(values, ids, pred_cols, bounds):
         return kernel.seg_agg_fused_cuda(
-            _f32(values), _i32(ids), _f32(pred_cols), _f32(bounds)[None],
-            num_groups, op)[0]
+            _aligned(_f32(values)), _aligned(_i32(ids)), _aligned(_f32(pred_cols)),
+            _f32(bounds)[None], num_groups, op)[0]
     return ref.seg_agg_fused_ref(values, ids, pred_cols, bounds, num_groups, op)
 
 
 def _batch(values, ids, pred_cols, bounds, num_groups, op):
     if _on_cuda(values, ids, pred_cols, bounds):
-        return kernel.seg_agg_fused_cuda(_f32(values), _i32(ids),
-                                         _f32(pred_cols), _f32(bounds),
+        return kernel.seg_agg_fused_cuda(_aligned(_f32(values)), _aligned(_i32(ids)),
+                                         _aligned(_f32(pred_cols)), _f32(bounds),
                                          num_groups, op)
     return ref.seg_agg_batch_ref(values, ids, pred_cols, bounds, num_groups, op)
 

@@ -4,13 +4,16 @@
 package (``repro/kernels/ssd_scan/kernel.py``): x (B, S, H, P) float32 or
 bfloat16, dt (B, S, H), A (H,), Bm and Cm (B, S, N) float32 -> y (B, S, H,
 P) in x's dtype, and with ``return_state`` also the final state (B, H, P,
-N) float32 that the block carried past the last chunk.  One block per
-(batch, head) loops over chunks of 32 steps with the state in shared
-memory.  The kernel is built for head dims ``HEAD_DIMS`` and state sizes
-that are multiples of 16 up to ``MAX_STATE``; any other raises
-``ValueError``.  The wrapper checks its inputs, allocates the outputs,
-launches on the current stream, raises on a launch error and counts each
-launch as ``ssd_scan`` in ``binding.launch_counts``.  The plain versions
+N) float32 that the kernel carried past the last chunk.  One block per
+(batch row, group of 192 / P heads) loops over chunks of 32 steps with each
+head's state in its warps' registers; every product runs on the tensor
+cores as three TF32 products of split operands (``ref.ssd_tiled_ref`` is
+that arithmetic in plain PyTorch).  The kernel is built for head dims
+``HEAD_DIMS`` and state sizes that are multiples of 16 up to
+``MAX_STATE``; any other raises ``ValueError``, as do x, Bm and Cm that
+do not start on a 16-byte boundary.  The wrapper checks its inputs,
+allocates the outputs, launches on the current stream, raises on a launch
+error and counts each launch as ``ssd_scan`` in ``binding.launch_counts``.  The plain versions
 are ``ref.ssd_ref`` (sequential) and ``ref.ssd_chunked``.
 """
 from __future__ import annotations
@@ -19,7 +22,7 @@ import ctypes
 
 import torch
 
-from ..binding import INT, PTR, check_tensor, count_launch, raise_on
+from ..binding import INT, PTR, check_aligned, check_tensor, count_launch, raise_on
 from ..build import load
 
 HEAD_DIMS = (16, 32, 64)
@@ -60,6 +63,8 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, return_state: bool = False):
     if n < 16 or n > MAX_STATE or n % 16:
         raise ValueError(f"state size {n}: the kernel takes multiples of 16 up to "
                          f"{MAX_STATE}")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        check_aligned(name, t)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev) \
         if return_state else None

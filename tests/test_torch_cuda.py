@@ -96,6 +96,38 @@ def test_kernels_match_plain(cuda_device, n, m, g, p, k, s, op):
     torch.cuda.synchronize()
 
 
+def _fused_inputs(dev, n, m, g, p, s, seed):
+    """The dashboard refresh's kind of inputs: uniform values, ids over g
+    groups, a year-like predicate column and s disjoint one-year ranges."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.rand((n, m), generator=gen, device=dev)
+    ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
+    pred = torch.randint(8000, 10600, (n, p), generator=gen, device=dev).float()
+    b = torch.tensor([[[[8035.0 + 365 * i, 8035.0 + 365 * i + 364]]] * p for i in range(s)],
+                     device=dev)
+    return v, ids, pred, b
+
+
+@pytest.mark.parametrize("m,g,p,s,tier", [
+    (3, 5, 1, 6, "warp"), (2, 5, 1, 1, "thread"), (2, 25, 2, 1, "thread"),
+    (2, 250, 1, 2, "warp"), (2, 250, 1, 1, "block"), (2, 6250, 1, 1, "block")])
+@pytest.mark.parametrize("op", ["sum", "min"])
+def test_fused_repeats_bit_for_bit(cuda_device, m, g, p, s, tier, op):
+    """The dashboard refresh's shape and single-signature misses at 1M rows:
+    two calls give identical bits where the slots are per thread or per
+    warp (SUM too); above that slot count (per block, shared atomics) the
+    results still match the plain version, and MIN repeats exactly."""
+    v, ids, pred, b = _fused_inputs(cuda_device, 1_000_000, m, g, p, s, g + s)
+    assert tkernel.fused_tier(v.shape[0], m, p, 1, s, g, op) == tier
+    got = tkernel.seg_agg_fused_cuda(v, ids, pred, b, g, op)
+    _close(got, tref.seg_agg_batch_ref(v, ids, pred, b, g, op))
+    again = tkernel.seg_agg_fused_cuda(v, ids, pred, b, g, op)
+    if tier in tkernel.DETERMINISTIC or op == "min":
+        assert torch.equal(got, again)
+    else:
+        _close(again, got)
+
+
 def test_wrappers_check_their_inputs(cuda_device):
     v = torch.zeros((8, 2), device=cuda_device)
     ids = torch.zeros(8, dtype=torch.int32, device=cuda_device)
@@ -106,6 +138,10 @@ def test_wrappers_check_their_inputs(cuda_device):
     with pytest.raises(ValueError):
         tkernel.seg_agg_fused_cuda(v, ids, torch.zeros((8, 1), device=cuda_device),
                                    torch.zeros((1, 2, 1, 2), device=cuda_device), 2)
+    wide = torch.zeros((9, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):  # rows 1.. start 8 bytes in
+        tkernel.seg_agg_fused_cuda(wide[1:], ids, torch.zeros((8, 1), device=cuda_device),
+                                   torch.zeros((1, 1, 1, 2), device=cuda_device), 2)
 
 
 def test_executor_on_cuda_matches_oracle(cuda_device):
@@ -286,6 +322,21 @@ def test_ssd_scan_matches_plain(cuda_device, b, s, h, p, n, dt_hi, dtype):
     torch.cuda.synchronize()
 
 
+def test_ssd_scan_at_the_engine_ceiling(cuda_device):
+    """8 prompts of 512 tokens (16 chunks per block), bf16 x, dt as large as
+    mamba2's init gives, against ``ssd_chunked`` + ``ssd_final_state``."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, 8, 512, 48, 64, 128, torch.bfloat16, 2.0, 5)
+    y, state = skernel.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True)
+    want_y = sref.ssd_chunked(x.float(), dt, A, Bm, Cm)
+    want_state = sref.ssd_final_state(x.float(), dt, A, Bm)
+    rtol, atol = SSD_TOL[torch.bfloat16]
+    np.testing.assert_allclose(y.float().cpu().numpy(), want_y.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+    rtol, atol = SSD_TOL[torch.float32]
+    np.testing.assert_allclose(state.cpu().numpy(), want_state.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+
+
 def test_ssd_scan_reads_nothing_past_s(cuda_device):
     """With B = 1 a prefix of S rows is contiguous: the storage past S holds
     NaN, and the kernel's output and state equal those of exact-size
@@ -323,6 +374,9 @@ def test_ssd_wrapper_checks_its_inputs(cuda_device):
     b100 = torch.zeros((1, 8, 100), device=cuda_device)
     with pytest.raises(ValueError, match="state size 100"):
         skernel.ssd_scan_cuda(x, dt, A, b100, b100)
+    wide = torch.zeros(8 * 16 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):  # starts 4 bytes in
+        skernel.ssd_scan_cuda(x, dt, A, wide[1:].view(1, 8, 16), Cm)
 
 
 def test_mamba2_on_the_card_matches_the_cpu(cuda_device):

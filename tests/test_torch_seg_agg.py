@@ -216,3 +216,15 @@ def test_mixed_devices_and_non_tensors_rejected():
     with pytest.raises(ValueError):
         tkernel.seg_agg_cuda(vals, torch.zeros(4, dtype=torch.int32),
                              torch.ones(4), 2)
+
+
+def test_dispatcher_hands_kernel_b_16_byte_aligned_columns():
+    """Kernel B stages its row columns with 16-byte copies: the dispatcher
+    copies a column block whose data starts inside a 16-byte word, and
+    passes an aligned one as it is."""
+    base = torch.zeros(9, 2)
+    view = base[1:]  # starts 8 bytes in
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    fixed = tops._aligned(view)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, view)
+    assert tops._aligned(base) is base

@@ -145,3 +145,69 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         skernel.ssd_scan_cuda(x, dt, A, Bm, Cm)
     with pytest.raises(ValueError, match="tensors on"):
         ssd_scan(x, dt.to("meta"), A, Bm, Cm)
+
+
+# chip_smoke.py's SSD_TOL, (rtol, atol): the card's kernel is held to the
+# sequential scan at these; its arithmetic, rehearsed here, must be too
+SSD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (4e-3, 1e-3)}
+
+
+def test_tf32_truncates_to_10_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -11, -(1.0 + 2 ** -10 + 2 ** -12),
+                      3.14159265, -2.5e-7, 0.0])
+    got = ref.tf32(x)
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0, -(1.0 + 2 ** -10)])
+    assert torch.equal(got[:4], want)  # toward zero
+    assert ((got - x).abs() <= x.abs() * 2 ** -10).all() and (got.abs() <= x.abs()).all()
+
+
+@pytest.mark.parametrize("half,bits", [("tf32", 18), ("bf16", 15)])
+def test_three_split_products_keep_f32_class_precision(half, bits):
+    """mm3 is within 2**-18 (TF32 halves) or 2**-15 (bf16 halves) of the
+    float64 product; one product of the hi halves is not: the split is
+    what keeps the kernel f32-class."""
+    rng = np.random.default_rng(1)
+    a = T(rng.normal(size=(32, 128)).astype(np.float32))
+    b = T(rng.normal(size=(128, 64)).astype(np.float32))
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    fn = getattr(ref, half)
+    assert ((ref.mm3(a, b, fn).double() - exact).abs() / scale).max() < 2.0 ** -bits
+    assert ((fn(a) @ fn(b)).double() - exact).abs().div(scale).max() > 2.0 ** -(bits - 5)
+
+
+@pytest.mark.parametrize("s", [1, 13, 77, 128, 300])
+@pytest.mark.parametrize("dt_hi", [0.1, 2.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_tiled_ref_matches_plain_and_pallas(s, dt_hi, dtype):
+    """The kernel's arithmetic (chunks of 32, C Bᵀ shared by the heads,
+    3xTF32 products, the carried state's part first) against the sequential
+    scan and the Pallas kernel in interpret mode, at the card's tolerances;
+    both references take a bf16 x's exact values in f32, so y is held to
+    them through its one bf16 rounding."""
+    b, h, p, n = 2, 3, 16, 32
+    x, dt, A, Bm, Cm = _inputs(b, s, h, p, n, seed=s + 17, dt_hi=dt_hi)
+    A = (-1.0 - 7.0 * np.random.default_rng(s).random(h)).astype(np.float32)  # as mamba2
+    tx = T(x).to(getattr(torch, dtype))
+    rest = [T(a) for a in (dt, A, Bm, Cm)]
+    y, state = ref.ssd_tiled_ref(tx, *rest)
+    assert y.dtype == tx.dtype and y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    want_y, want_state = ref.ssd_ref(tx.float(), *rest)
+    rtol, atol = SSD_TOL[dtype]
+    np.testing.assert_allclose(y.float().numpy(), want_y.numpy(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(state.numpy(), want_state.numpy(), *SSD_TOL["float32"])
+    pallas = ssd_scan_pallas(jnp.asarray(tx.float().numpy()),
+                             *(jnp.asarray(a) for a in (dt, A, Bm, Cm)), interpret=True)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(pallas).astype(np.float32),
+                               rtol=rtol, atol=atol)
+
+
+def test_ssd_tiled_ref_at_the_kernel_widths():
+    """mamba2-780m's head (P 64, N 128) over three chunks with a short
+    last one, dt as large as its init gives, against the sequential scan."""
+    x, dt, A, Bm, Cm = (T(a) for a in _inputs(2, 77, 2, 64, 128, seed=9, dt_hi=2.0))
+    y, state = ref.ssd_tiled_ref(x, dt, -1.0 - 3.5 * A.abs(), Bm, Cm)
+    want_y, want_state = ref.ssd_ref(x, dt, -1.0 - 3.5 * A.abs(), Bm, Cm)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), *SSD_TOL["float32"])
+    np.testing.assert_allclose(state.numpy(), want_state.numpy(), *SSD_TOL["float32"])
