@@ -6,55 +6,67 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. build   — compile every CUDA kernel from the sources in this checkout
-             (one nvcc per source, all started together); print the
-             registers, spills and static shared memory from ``ptxas -v``
-             of each instance of the tensor-core kernels (attention, SSD
-             scan) and of kernel B, and its HMMA (tensor-core) instruction
+             (one nvcc per compilation unit, all started together: the
+             attention sources once per head dim); print the registers,
+             spills and static shared memory from ``ptxas -v`` of each
+             instance of the tensor-core kernels (attention, SSD scan) and
+             of kernels A and B, and its HMMA (tensor-core) instruction
              count from ``cuobjdump -sass`` where installed (fails if a
              bf16 flash or an SSD-scan instance has none).  With
-             ``--baseline DIR`` (a checkout of an earlier commit with PR
-             14's kernel entries) also DIR's ssd_scan and seg_agg, whose
-             times are printed beside this checkout's.
+             ``--baseline DIR`` (a checkout of an earlier commit whose
+             kernel A entry takes no scratch) also DIR's seg_agg,
+             flash_attn and decode_attn, whose kernels are timed in turns
+             with this checkout's, and their ptxas figures.
 2. kernels — hold each kernel against its plain PyTorch version on the card.
              seg_agg / seg_agg_fused: a small case with NaN values,
-             NaN-sentinel and pad ranges and an empty mask, then a sweep at
-             main-path shapes (N = n_fact); rtol 1e-4, atol 1e-4, NaN where
-             the plain version has NaN (sums use atomics, so their last bits
-             vary run to run).  flash_attn: GQA groups 1, 2, 3, 4, 8, S in
-             {1, 2, 63, 64, 65, 77, 96, 129, 512, 1000} (the 64-row tile
-             edges), causal and not, head dims 64 and 128.  decode_attn:
-             caches of 512 and 4096 slots, pos in {1, C-1, C, C+1, 77,
-             511, S} in one batch (C = 32 slots per f32 block), two calls
-             bit-identical, cache slots past pos overwritten (999 keys, NaN
-             values) change nothing, and in bf16 a decode step over each
-             flash case's keys equals the flash output's last row bit for
-             bit.  Both again at the main path's
-             shapes (bf16, 8 prompts of 12 heads over 4 KV heads, head dim
-             64; decode at the first, a middle and the last decode step's
-             pos on a 512-slot cache) and at the engine's ceiling (8
-             prompts of 512 tokens; decode at pos 512).  The plain versions
-             run on the inputs' exact
-             float32 values; tolerances (rtol, atol): float32 (2e-3, 2e-3),
-             bfloat16 (4e-3, 5e-4).  ssd_scan: S in {1, 77, 128, 300, 4096}
-             over (N, P, H) in {(16, 16, 1), (64, 64, 3), (128, 64,
-             48), (128, 16, 3)}, dt small (0.001-0.1) and as large as
-             mamba2's init gives (up to 2), y with and without the final
-             state; against the sequential ``ssd_ref`` where S <= 300, else
-             ``ssd_chunked`` + ``ssd_final_state``; tolerances (rtol, atol)
-             float32 (1e-3, 1e-3), bfloat16 y (4e-3, 1e-3); NaN in the
-             storage past S changes nothing; again at the main path's
-             shapes (8 prompts, 48 heads, P 64, N 128, bf16 x) and at the
-             engine's ceiling (8 prompts of 512).  Times each kernel, its
-             plain version and, where one exists, one PyTorch library call
-             computing the same function, at the main path's shapes:
-             device time per call under ``torch.profiler``; for the
-             attention kernels also kernel and library at the engine's
-             ceiling, for the SSD scan kernel and plain there (printed
-             first), and the host microseconds per call of the
-             ``decode_attention`` dispatcher and of SDPA.  The SSD scan's
-             bound takes its operations at the bf16 tensor-core rate (its
-             bf16 instance's products run there), with the f32 CUDA-core
-             bound beside it.
+             NaN-sentinel and pad ranges and an empty mask, kernel A in
+             each of its slot tiers (per thread, per block, global) under
+             both mask contracts and with ids outside [0, G), then a sweep
+             at main-path shapes (N = n_fact); rtol 1e-4, atol 1e-4, NaN
+             where the plain version has NaN; two calls of kernel A
+             bit-identical where its slots are per thread and for MIN/MAX
+             (per-block and global sums use atomics, so their last bits
+             vary run to run).  flash_attn: head dims 64 and 128 over GQA
+             groups 1, 2, 3, 4, 8, S in {1, 2, 63, 64, 65, 77, 96, 129, 512,
+             1000} (the 64-row tile edges), causal and not; head dims 16,
+             32, 112, 192 and 256 at the head counts of ``HEAD_DIM_HEADS``,
+             S in {1, 63, 64, 65, 129, 512}.  decode_attn: caches of 512
+             and 4096 slots (512 at the other head dims), pos in {1, C-1,
+             C, C+1, 77, 511, S} in one batch (C = 32 slots per f32 block),
+             two calls bit-identical, cache slots past pos overwritten (999
+             keys, NaN values) change nothing, and in bf16 a decode step
+             over each causal flash case's keys equals the flash output's
+             last row bit for bit, at every head dim.  Both again at the
+             main path's shapes (bf16, 8 prompts of 12 heads over 4 KV
+             heads, head dim 64; decode at the first, a middle and the last
+             decode step's pos on a 512-slot cache) and at the engine's
+             ceiling (8 prompts of 512 tokens; decode at pos 512), and at
+             the other head dims (8 prompts; decode at pos 512).  The plain
+             versions run on the inputs' exact float32 values; tolerances
+             (rtol, atol): float32 (2e-3, 2e-3), bfloat16 (4e-3, 5e-4).
+             ssd_scan: S in {1, 77, 128, 300, 4096} over (N, P, H) in {(16,
+             16, 1), (64, 64, 3), (128, 64, 48), (128, 16, 3)}, dt small
+             (0.001-0.1) and as large as mamba2's init gives (up to 2), y
+             with and without the final state; against the sequential
+             ``ssd_ref`` where S <= 300, else ``ssd_chunked`` +
+             ``ssd_final_state``; tolerances (rtol, atol) float32 (1e-3,
+             1e-3), bfloat16 y (4e-3, 1e-3); NaN in the storage past S
+             changes nothing; again at the main path's shapes (8 prompts,
+             48 heads, P 64, N 128, bf16 x) and at the engine's ceiling (8
+             prompts of 512).  Times each kernel, its plain version and,
+             where one exists, one PyTorch library call computing the same
+             function, at the main path's shapes: device time per call
+             under ``torch.profiler`` (the median over the calls), the L2
+             cache flushed before each call by a read of 8x its size (the
+             flush's kernel left out; a call finds no input in L2); kernel
+             A also at
+             84 and 6250 groups; for the attention kernels also kernel and
+             library at the engine's ceiling and at every other head dim,
+             for the SSD scan kernel and plain there (printed first), and
+             the host microseconds per call of the ``decode_attention``
+             dispatcher and of SDPA.  The SSD scan's bound takes its
+             operations at the bf16 tensor-core rate (its bf16 instance's
+             products run there), with the f32 CUDA-core bound beside it.
 3. llm     — canonicalizer-100m at full width (12 layers, d_model 768, 12/4
              heads, head dim 64, d_ff 2048, vocab 8192), weights initialised
              from ``--seed``: (a) teacher forcing on the card, prefill
@@ -69,7 +81,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
              (bfloat16 engine): every NLResult keeps the protocol, every
              served table matches the numpy oracle.  The attention kernels'
              launch counts are read from (c) alone.
-4. mamba2  — mamba2-780m at full width (48 layers, d_model 1536, d_inner
+4. reduced — ``launch.serve --reduced`` on the card: one engine batch of 8
+             SSB NL requests through ``serve.llm_canonicalizer(wl,
+             "canonicalizer-100m", reduced=True)`` (head dim 16): the
+             protocol kept, every table against the oracle, both attention
+             kernels launched (counts zeroed before, read after).
+5. gemma   — gemma-2b at full width and depth (18 layers, d_model 2048,
+             8/1 heads of head dim 256, geglu, tied vocab 256,000), weights
+             from ``--seed``: teacher forcing at full depth in float32 and
+             bfloat16 (2e-2 prefill, 3e-2 decode), the float32 model's
+             first ``GEMMA_CPU_DEPTH`` layers on the CPU against the card
+             (1e-3), then 8 token-id prompts prefilled and decoded
+             ``GEMMA_STEPS`` greedy steps, one flash launch per layer and
+             one decode launch per layer and step.
+6. mamba2  — mamba2-780m at full width (48 layers, d_model 1536, d_inner
              3072, 48 SSD heads of 64, state 128, vocab 50280), weights from
              ``--seed``: (a) teacher forcing on the card: float32 at full
              depth, prefill logits against ``forward`` (2e-2) and one
@@ -87,7 +112,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
              (bfloat16): the protocol kept, every table against the oracle,
              one ssd_scan launch per layer and engine batch.  The ssd_scan
              launch count is read from (c) alone.
-5. serve   — SSB at ``--n-fact`` rows (SF1's LINEORDER has 6,000,000)
+7. serve   — SSB at ``--n-fact`` rows (SF1's LINEORDER has 6,000,000)
              through the SQL pipeline and the semantic cache: the SSB SQL
              stream, the hierarchical drill stream, a 6-tile dashboard
              refresh (one shared scan) and one request whose filter needs
@@ -100,18 +125,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
              slots are per thread or warp, and for MIN/MAX everywhere) and
              timed beside its byte bound: the table and launches x (ms -
              bound).
-6. nl      — the SSB mixed stream (SQL and NL) through a fresh tenant whose
+8. nl      — the SSB mixed stream (SQL and NL) through a fresh tenant whose
              NL canonicalizer is ``MemoizedNL(SimulatedLLM)``, on the same
              dataset: every served table against the numpy oracle, no false
              hit, at least one NL hit.
-7. profile — a fresh dataset and tenant replay the first 64 SSB requests
+9. profile — a fresh dataset and tenant replay the first 64 SSB requests
              under ``torch.profiler`` (device busy share of a cold start, the
              kernels and copies that took the most device time), and again
              under ``cProfile`` (host functions by own time); then one more
-             engine batch of 8 NL questions under ``torch.profiler``, for
-             each of the two engines: device busy share of prefill + decode
-             loop, device ms per decode step against host ms per step, and
-             the top device ops.
+             engine batch of 8 NL questions, at most ``PROFILE_STEPS``
+             decode steps, under ``torch.profiler``, for each of the two
+             engines: device busy share of prefill + decode loop, device ms
+             per decode step against host ms per step, and the top device
+             ops.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Exits
@@ -155,32 +181,35 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device milliseconds per call: the summed duration of every
-    kernel and copy ``torch.profiler`` traced over ``iters`` calls, so the
-    host's gaps between launches are not counted."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, iters: int, args=()) -> float:
+    """Device milliseconds per call of ``fn(*args)``: the median over
+    ``iters`` calls of the summed duration of the kernels and copies
+    ``torch.profiler`` traced for each, so the host's gaps between
+    launches are not counted.  The L2 cache is flushed before each call,
+    and the flush's kernel is left out of the sums
+    (``repro_torch.kernels.ablation.device_ms``)."""
+    from repro_torch.kernels.ablation import device_ms as flushed_device_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ms for ms, _ in _device_ops(prof).values())
-    if total <= 0.0:
-        raise AssertionError("the profiler traced no device time")
-    return total / iters
+    return flushed_device_ms(fn, iters, args)
+
+
+def abba(kernel, base, iters: int) -> tuple[float, float]:
+    """Device ms per call of a kernel and of its baseline, each a (function,
+    arguments) pair, timed in turns (baseline, kernel, kernel, baseline) so
+    that a drift of the card during the four reads shows in neither mean."""
+    b1 = device_ms(base[0], iters, base[1])
+    k1 = device_ms(kernel[0], iters, kernel[1])
+    k2 = device_ms(kernel[0], iters, kernel[1])
+    b2 = device_ms(base[0], iters, base[1])
+    return (k1 + k2) / 2, (b1 + b2) / 2
 
 
 def timed(kernel, plain, library, iters: int) -> dict:
     """Device ms per call of a kernel, its plain version and the library
-    call (None where there is none)."""
-    return {"ms": device_ms(kernel, iters),
-            "plain_ms": device_ms(plain, max(3, iters // 4)),
-            "library_ms": None if library is None else device_ms(library, iters)}
+    call (None where there is none), each a (function, arguments) pair."""
+    return {"ms": device_ms(kernel[0], iters, kernel[1]),
+            "plain_ms": device_ms(plain[0], max(3, iters // 4), plain[1]),
+            "library_ms": None if library is None else device_ms(library[0], iters, library[1])}
 
 
 def compare(got, want, what: str, rtol: float = RTOL, atol: float = ATOL) -> float:
@@ -244,8 +273,28 @@ def _instance(mangled: str) -> str:
 
 
 # the kernels whose ptxas and SASS figures [build] prints: the tensor-core
-# ones and the redesigned kernel B (instance names start with these)
-BUILD_SHOWN = ("flash_attn_", "decode_", "ssd_scan_kernel", "seg_agg_fused_kernel")
+# ones and kernels A and B, one template (instance names start with these)
+BUILD_SHOWN = ("flash_attn_", "decode_", "ssd_scan_kernel", "seg_agg_tiled_kernel")
+
+
+def ptxas_info(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel
+    instance, as ``ptxas -v`` reported them in a build log."""
+    import re
+
+    info: dict = {}
+    cur = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = info.setdefault(_instance(m.group(1)), {})
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                                 r"spill loads", line)):
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return info
 
 
 def build_info(names=("flash_attn", "decode_attn", "ssd_scan", "seg_agg")) -> dict:
@@ -262,17 +311,7 @@ def build_info(names=("flash_attn", "decode_attn", "ssd_scan", "seg_agg")) -> di
     info: dict = {}
     for name in names:
         lib = build.library_path(name)
-        cur = None
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if m := re.search(r"Compiling entry function '(\w+)'", line):
-                cur = info.setdefault(_instance(m.group(1)), {})
-            elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                                                     r"spill loads", line)):
-                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-            elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
-                cur["registers"] = int(m.group(1))
-                sm = re.search(r"(\d+) bytes smem", line)
-                cur["static_smem"] = int(sm.group(1)) if sm else 0
+        info.update(ptxas_info(lib.with_suffix(".log").read_text()))
         tool = shutil.which("cuobjdump") or str(Path(build.nvcc()).parent / "cuobjdump")
         if not Path(tool).exists():
             continue
@@ -317,37 +356,60 @@ def kernel_checks(n_fact: int, dev, gen) -> dict:
     from repro_torch.kernels.seg_agg import ref as R
 
     errs = {"seg_agg": 0.0, "seg_agg_fused": 0.0}
+    tiers_a: set = set()
 
     def check_a(v, ids, mask, g, op, select, what):
         plain = R.seg_agg_masked_ref if select else R.seg_agg_ref
         got = K.seg_agg_cuda(v, ids, mask, g, op, select=select)
         errs["seg_agg"] = max(errs["seg_agg"], compare(got, plain(v, ids, mask, g, op), what))
+        tier = K.masked_tier(v.shape[0], v.shape[1], g, op, select)
+        tiers_a.add(tier)
+        # bit for bit where the slots are per thread (and MIN/MAX everywhere)
+        again = K.seg_agg_cuda(v, ids, mask, g, op, select=select)
+        same = torch.equal(again.view(torch.int32), got.view(torch.int32))  # NaN bits too
+        if not same and (tier in K.DETERMINISTIC or op != "sum"):
+            raise AssertionError(f"{what}: two calls differ ({tier} slots)")
 
     def check_b(v, ids, pred, b, g, op, what):
         got = K.seg_agg_fused_cuda(v, ids, pred, b, g, op)
         want = R.seg_agg_batch_ref(v, ids, pred, b, g, op)
         errs["seg_agg_fused"] = max(errs["seg_agg_fused"], compare(got, want, what))
 
-    # small: NaN values and predicates, sentinel and pad ranges, empty mask
-    n, m, g = 5000, 3, 37
+    # small: NaN values and predicates, sentinel and pad ranges, empty mask;
+    # kernel A in each of its tiers (G 5: per thread, 37: per block,
+    # 200000: global atomics), both contracts, and ids outside [0, G)
+    n, m = 5000, 3
     v = torch.randn(n, m, generator=gen, device=dev)
     v[torch.rand(n, m, generator=gen, device=dev) < 0.02] = float("nan")
-    ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
     pred = torch.randint(0, 10, (n, 2), generator=gen, device=dev).float()
     pred[torch.rand(n, 2, generator=gen, device=dev) < 0.02] = float("nan")
     mask = (torch.rand(n, generator=gen, device=dev) > 0.3).float()
     empty = torch.zeros(n, device=dev)
+    for g in (5, 37, 200_000):
+        ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
+        for op in ("sum", "min", "max"):
+            for select in (True, False):
+                check_a(v, ids, mask, g, op, select, f"A small G={g} {op} select={select}")
+            check_a(v, ids, empty, g, op, True, f"A small G={g} {op} empty mask")
+    # ids outside [0, G) reach no group (the plain version takes ids in range)
+    stray = ids.clone()
+    stray[::7], stray[1::7] = -3, g + 11
+    keep = (stray >= 0) & (stray < g)
+    errs["seg_agg"] = max(errs["seg_agg"], compare(
+        K.seg_agg_cuda(v, stray, mask, g, "sum"),
+        R.seg_agg_masked_ref(v[keep], ids[keep], mask[keep], g, "sum"),
+        "A small ids outside [0, G)"))
+    g = 37
+    ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
     for op in ("sum", "min", "max"):
-        for select in (True, False):
-            check_a(v, ids, mask, g, op, select, f"A small {op} select={select}")
-        check_a(v, ids, empty, g, op, True, f"A small {op} empty mask")
         check_b(v, ids, pred, _bounds(gen, 6, 2, 4, dev), g, op, f"B small {op}")
         never = torch.tensor([[[[float("inf"), float("-inf")]]] * 2], device=dev)
         check_b(v, ids, pred, never, g, op, f"B small {op} empty mask")
 
-    # main-path shapes: N = n_fact, M 1..5, G 1..2500, P <= 3, S in {1, 6}
+    # main-path shapes: N = n_fact, M 1..5, G 1..2500, P <= 3, S in {1, 6};
+    # kernel A also at G 84 and 6250 and under the multiply contract
     for m, g, p, s in ((1, 1, 1, 1), (2, 5, 2, 6), (3, 25, 3, 1), (4, 250, 0, 6),
-                       (5, 2500, 1, 6)):
+                       (5, 2500, 1, 6), (2, 84, 1, 1), (2, 6250, 1, 1)):
         v = torch.rand(n_fact, m, generator=gen, device=dev)
         ids = torch.randint(0, g, (n_fact,), generator=gen, device=dev, dtype=torch.int32)
         pred = torch.randint(0, 10, (n_fact, p), generator=gen, device=dev).float()
@@ -356,15 +418,22 @@ def kernel_checks(n_fact: int, dev, gen) -> dict:
         for op in ("sum", "min"):
             check_a(v, ids, mask, g, op, True, f"A N={n_fact} M={m} G={g} {op}")
             check_b(v, ids, pred, b, g, op, f"B N={n_fact} M={m} G={g} P={p} S={s} {op}")
+        check_a(v, ids, mask, g, "sum", False, f"A N={n_fact} M={m} G={g} sum multiply")
+    if tiers_a != {"thread", "block", "global"}:
+        raise AssertionError(f"kernel A checked in tiers {sorted(tiers_a)}")
     torch.cuda.synchronize()
     return errs
 
 
 class Baseline:
-    """The SSD-scan and seg_agg kernels of an earlier checkout (``--baseline
-    DIR``, with PR 14's C entries), built from DIR's sources into
-    ``build/kernels/baseline/``, to time the redesigned kernels against in
-    the same run on the same card."""
+    """The seg_agg and attention kernels of an earlier checkout (``--baseline
+    DIR``, whose C entries are kernel A's without scratch, kernel B's with
+    its plan, workspace and barrier, and the attention dispatchers as now),
+    each source built whole from DIR into ``build/kernels/baseline/``, to
+    time this checkout's kernels against in the same run on the same card.
+    ``registers`` holds its instances' ptxas figures."""
+
+    NAMES = ("seg_agg", "flash_attn", "decode_attn")
 
     def __init__(self, root: Path):
         import ctypes
@@ -372,24 +441,31 @@ class Baseline:
         from repro_torch.kernels import build
 
         out = build.BUILD_DIR / "baseline"
-        out.mkdir(parents=True, exist_ok=True)
-        jobs = {}
-        for name in ("ssd_scan", "seg_agg"):
-            src = root / "src" / "repro_torch" / "kernels" / name / "csrc" / f"{name}.cu"
-            jobs[name] = (subprocess.Popen(
-                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out / f"lib{name}.so")
-        self.libs = {}
-        for name, (proc, so) in jobs.items():
-            log, _ = proc.communicate()
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed for the baseline {name}:\n{log}")
-            self.libs[name] = ctypes.CDLL(str(so))
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        self.libs["ssd_scan"].ssd_scan_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
-                                                          I, P]
-        self.libs["seg_agg"].seg_agg_fused_launch.argtypes = [P, P, P, P, P, L, I, I, I, I, I,
+        jobs = {n: build.Job([(root / "src" / "repro_torch" / "kernels" / n / "csrc" / f"{n}.cu",
+                               ())], out / f"lib{n}.so", f"the baseline {n}")
+                for n in self.NAMES}
+        self.libs, self.registers = {}, {}
+        for n, job in jobs.items():
+            job.finish()
+            self.libs[n] = ctypes.CDLL(str(out / f"lib{n}.so"))
+            self.registers.update({k: v for k, v in ptxas_info(
+                (out / f"lib{n}.log").read_text()).items() if k.startswith(BUILD_SHOWN)
+                or k.startswith("seg_agg_")})
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        seg = self.libs["seg_agg"]
+        seg.seg_agg_launch.argtypes = [P, P, P, P, L, I, I, I, I, P]
+        seg.seg_agg_fused_launch.argtypes = [P, P, P, P, P, L, I, I, I, I, I, I, P, P, P]
+        seg.seg_agg_fused_plan.argtypes = [L, I, I, I, I, I, I, ctypes.POINTER(L)]
+        self.libs["flash_attn"].flash_attn_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, F,
                                                               I, P]
+        self.libs["decode_attn"].decode_attn_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, F,
+                                                                I, P, P, P]
+        for lib in self.libs.values():
+            for fn in ("seg_agg_launch", "seg_agg_fused_launch", "seg_agg_fused_plan",
+                       "flash_attn_launch", "decode_attn_launch"):
+                if hasattr(lib, fn):
+                    getattr(lib, fn).restype = I
+        self.bar = None
 
     @staticmethod
     def _stream(t) -> int:
@@ -397,77 +473,126 @@ class Baseline:
 
         return torch.cuda.current_stream(t.device).cuda_stream
 
+    @staticmethod
+    def _check(rc: int, what: str) -> None:
+        if rc:
+            raise RuntimeError(f"baseline {what}: CUDA error {rc}")
+
+    def masked(self, values, ids, mask, num_groups: int, op: str, select: bool = True):
+        import torch
+
+        n, m = values.shape
+        out = torch.empty((num_groups, m), device=values.device)
+        self._check(self.libs["seg_agg"].seg_agg_launch(
+            values.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(), n, m,
+            num_groups, {"sum": 0, "min": 1, "max": 2}[op], int(select),
+            self._stream(values)), "seg_agg")
+        return out
+
     def fused(self, values, ids, pred, bounds, num_groups: int, op: str):
+        import ctypes
+
         import torch
 
         n, m = values.shape
         s, p, k, _ = bounds.shape
+        code = {"sum": 0, "min": 1, "max": 2}[op]
+        lib = self.libs["seg_agg"]
+        work = ctypes.c_longlong(0)
+        if lib.seg_agg_fused_plan(n, m, p, k, s, num_groups, code, ctypes.byref(work)) < 0:
+            raise RuntimeError("baseline seg_agg_fused plan failed")
+        ws = torch.empty(max(work.value, 1), device=values.device)
+        if self.bar is None:
+            self.bar = torch.zeros(2, dtype=torch.int32, device=values.device)
         out = torch.empty((s, num_groups, m), device=values.device)
-        rc = self.libs["seg_agg"].seg_agg_fused_launch(
+        self._check(lib.seg_agg_fused_launch(
             values.data_ptr(), ids.data_ptr(), pred.data_ptr(), bounds.data_ptr(),
-            out.data_ptr(), n, m, p, k, s, num_groups, {"sum": 0, "min": 1, "max": 2}[op],
-            self._stream(values))
-        if rc:
-            raise RuntimeError(f"baseline seg_agg_fused: CUDA error {rc}")
+            out.data_ptr(), n, m, p, k, s, num_groups, code, self._stream(values),
+            ws.data_ptr(), self.bar.data_ptr()), "seg_agg_fused")
         return out
 
-    def ssd(self, x, dt, A, Bm, Cm):
+    def flash(self, q, k, v):
+        """bf16, causal."""
         import torch
 
-        b, s, h, p = x.shape
-        y = torch.empty_like(x)
-        state = torch.empty((b, h, p, Bm.shape[-1]), device=x.device)
-        rc = self.libs["ssd_scan"].ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, h, s, p, Bm.shape[-1],
-            int(x.dtype == torch.bfloat16), self._stream(x))
-        if rc:
-            raise RuntimeError(f"baseline ssd_scan: CUDA error {rc}")
-        return y, state
+        b, h, s, dh = q.shape
+        out = torch.empty_like(q)
+        self._check(self.libs["flash_attn"].flash_attn_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, k.shape[1], s, dh,
+            1, dh ** -0.5, 1, self._stream(q)), "flash_attn")
+        return out
+
+    def decode(self, q, k, v, pos):
+        """bf16 (no scratch)."""
+        import torch
+
+        b, h, dh = q.shape
+        out = torch.empty_like(q)
+        self._check(self.libs["decode_attn"].decode_attn_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
+            k.shape[1], k.shape[2], dh, dh ** -0.5, 1, self._stream(q), None, None),
+            "decode_attn")
+        return out
 
 
 def kernel_times(n_fact: int, dev, gen, iters: int, baseline=None) -> dict:
     """Kernel, plain and library times at the main path's shapes: kernel A
-    at the host-mask request's (sum block [COUNT, SUM], 5 regions), kernel
-    B at the dashboard refresh's (sum block [COUNT, SUM, AVG], 5 regions,
-    one time-window predicate, 6 tiles), with the baseline's time where one
-    is given."""
+    at the host-mask request's (sum block [COUNT, SUM], 5 regions), and in
+    ``more`` at 84 and 6250 groups (kernel B's per-block shapes), each with
+    its slot tier; kernel B at the dashboard refresh's (sum block [COUNT,
+    SUM, AVG], 5 regions, one time-window predicate, 6 tiles).  With a
+    baseline, kernel and baseline are timed in turns (``abba``) at each
+    shape (``ms``, ``baseline_ms``)."""
     import torch
 
     from repro_torch.kernels.seg_agg import kernel as K
     from repro_torch.kernels.seg_agg import ref as R
 
-    out = {}
-    n, m, g = n_fact, 2, 5
+    def kernel_a(g: int) -> dict:
+        n, m = n_fact, 2
+        v = torch.rand(n, m, generator=gen, device=dev)
+        ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
+        mask = (torch.rand(n, generator=gen, device=dev) > 0.5).float()
+        pre = torch.where(mask[:, None] > 0.5, v, torch.zeros((), device=dev))
+        call = (lambda v, i, mk: K.seg_agg_cuda(v, i, mk, g, "sum"), (v, ids, mask))
+        t = {
+            **timed(call,
+                    (lambda v, i, mk: R.seg_agg_masked_ref(v, i, mk, g, "sum"), (v, ids, mask)),
+                    (lambda x, i: torch.zeros(g, m, device=dev).index_add_(0, i, x),
+                     (pre, ids.long())), iters),
+            "bytes": n * (m + 2) * 4 + g * m * 4, "ops": n * m,
+            "tier": K.masked_tier(n, m, g, "sum"),
+            "shape": f"values ({n},{m}) ids ({n},) mask ({n},) G={g} sum",
+        }
+        if baseline is not None:
+            t["ms"], t["baseline_ms"] = abba(
+                call, (lambda v, i, mk: baseline.masked(v, i, mk, g, "sum"), (v, ids, mask)),
+                iters)
+        return with_bound(t, F32_OPS_PER_S)
+
+    out = {"seg_agg": kernel_a(5)}
+    out["seg_agg"]["more"] = [kernel_a(g) for g in (84, 6250)]
+    n, m, g, p, s = n_fact, 3, 5, 1, 6
     v = torch.rand(n, m, generator=gen, device=dev)
     ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
-    mask = (torch.rand(n, generator=gen, device=dev) > 0.5).float()
-    pre = torch.where(mask[:, None] > 0.5, v, torch.zeros((), device=dev))
-    ids64 = ids.long()
-    byts = n * (m + 2) * 4 + g * m * 4
-    out["seg_agg"] = {
-        **timed(lambda: K.seg_agg_cuda(v, ids, mask, g, "sum"),
-                lambda: R.seg_agg_masked_ref(v, ids, mask, g, "sum"),
-                lambda: torch.zeros(g, m, device=dev).index_add_(0, ids64, pre), iters),
-        "bytes": byts, "ops": n * m,
-        "shape": f"values ({n},{m}) ids ({n},) mask ({n},) G={g} sum",
-    }
-    m, p, s = 3, 1, 6
-    v = torch.rand(n, m, generator=gen, device=dev)
     pred = torch.randint(8000, 10600, (n, p), generator=gen, device=dev).float()
     b = torch.tensor([[[[8035.0 + 365 * i, 8035.0 + 365 * i + 364]]] for i in range(s)],
                      device=dev)
     byts = n * (m + 1 + p) * 4 + s * g * m * 4 + b.numel() * 4
+    call = (lambda v, i, pr: K.seg_agg_fused_cuda(v, i, pr, b, g, "sum"), (v, ids, pred))
     out["seg_agg_fused"] = {
-        **timed(lambda: K.seg_agg_fused_cuda(v, ids, pred, b, g, "sum"),
-                lambda: R.seg_agg_batch_ref(v, ids, pred, b, g, "sum"), None, iters),
+        **timed(call,
+                (lambda v, i, pr: R.seg_agg_batch_ref(v, i, pr, b, g, "sum"), (v, ids, pred)),
+                None, iters),
         "bytes": byts, "ops": n * p * s * 2 + n * m * s,
         "shape": f"values ({n},{m}) ids ({n},) pred ({n},{p}) bounds {tuple(b.shape)} G={g} sum",
     }
     if baseline is not None:
-        out["seg_agg_fused"]["pr14_ms"] = device_ms(
-            lambda: baseline.fused(v, ids, pred, b, g, "sum"), iters)
-    return {k: with_bound(t, F32_OPS_PER_S) for k, t in out.items()}
+        out["seg_agg_fused"]["ms"], out["seg_agg_fused"]["baseline_ms"] = abba(
+            call, (lambda v, i, pr: baseline.fused(v, i, pr, b, g, "sum"), (v, ids, pred)),
+            iters)
+    out["seg_agg_fused"] = with_bound(out["seg_agg_fused"], F32_OPS_PER_S)
+    return out
 
 
 def _f32(*tensors):
@@ -478,58 +603,100 @@ def _f32(*tensors):
     return tuple(t.float() for t in tensors)
 
 
-def attention_checks(dev, gen) -> dict:
-    """Max abs error of each attention kernel against its plain version over
-    the sweeps, by kernel and dtype."""
+# (H, Hkv) at which each head dim past 64 and 128 is checked and timed: the
+# reduced configs' dim 16 at 4/2 heads, the reference's kernel tests' 32 at
+# 8/1, kimi-k2's 112 at 64/8 (zamba2's is 32/32), nemotron-4-340b's 192 at
+# 96/8 and gemma-2b's 256 at 8/1
+HEAD_DIM_HEADS = {16: (4, 2), 32: (8, 1), 112: (64, 8), 192: (96, 8), 256: (8, 1)}
+
+
+def _decode_is_the_prefill_row(q, k, v, got, what: str) -> None:
+    """A bf16 decode step over the S cached keys equals the prefill's last
+    row bit for bit."""
+    import torch
+
+    from repro_torch.kernels.decode_attn import kernel as DK
+
+    pos = torch.full((q.shape[0],), q.shape[2], dtype=torch.int32, device=q.device)
+    if not torch.equal(DK.decode_attention_cuda(q[:, :, -1].contiguous(), k, v, pos),
+                       got[:, :, -1]):
+        raise AssertionError(f"{what}: a decode step differs from the prefill's last row")
+
+
+def _decode_sweep(b_pos, h, hkv, s, dh, dtype, dev, gen, what: str) -> float:
+    """The decode kernel at ``b_pos`` (one row each) over an S-slot cache
+    against its plain version; two calls bit-identical; slots past pos
+    overwritten (999 keys, NaN values) change nothing."""
     import torch
 
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.decode_attn import ref as DR
+
+    pos = torch.tensor(b_pos, dtype=torch.int32, device=dev)
+    q = torch.randn(len(pos), h, dh, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(len(pos), hkv, s, dh, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    got = DK.decode_attention_cuda(q, k, v, pos)
+    err = compare(got, DR.decode_attention_ref(*_f32(q, k, v), pos), what,
+                  *ATTN_TOL[str(dtype).removeprefix("torch.")])
+    if not torch.equal(DK.decode_attention_cuda(q, k, v, pos), got):
+        raise AssertionError(f"{what}: two calls differ")
+    for i, p in enumerate(pos.tolist()):
+        k[i, :, p:], v[i, :, p:] = 999.0, float("nan")
+    if not torch.equal(DK.decode_attention_cuda(q, k, v, pos), got):
+        raise AssertionError(f"{what}: slots past pos changed the output")
+    return err
+
+
+def attention_checks(dev, gen) -> dict:
+    """Max abs error of each attention kernel against its plain version over
+    the sweeps, by kernel and dtype: head dims 64 and 128 over GQA groups
+    and tile edges, then every other head dim the kernels are built for at
+    the head counts of ``HEAD_DIM_HEADS``."""
+    import torch
+
+    from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn import ref as FR
 
     errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in ("flash_attn", "decode_attn")}
-    b, hkv, c = 2, 2, DK.CHUNK
-    for dtype in (torch.float32, torch.bfloat16):
+    c = DK.CHUNK
+
+    def flash(b, h, hkv, s, dh, dtype, causal, what):
+        q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
         name = str(dtype).removeprefix("torch.")
-        rtol, atol = ATTN_TOL[name]
+        got = FK.flash_attention_cuda(q, k, v, causal=causal)
+        err = compare(got, FR.mha_ref(*_f32(q, k, v), causal=causal), what, *ATTN_TOL[name])
+        errs["flash_attn"][name] = max(errs["flash_attn"][name], err)
+        if dtype == torch.bfloat16 and causal:  # a decode step is the prefill's row
+            _decode_is_the_prefill_row(q, k, v, got, what)
+
+    def decode(b_pos, h, hkv, s, dh, dtype, what):
+        name = str(dtype).removeprefix("torch.")
+        errs["decode_attn"][name] = max(errs["decode_attn"][name], _decode_sweep(
+            b_pos, h, hkv, s, dh, dtype, dev, gen, what))
+
+    for dtype in (torch.float32, torch.bfloat16):
         for dh in (64, 128):
             for g in (1, 2, 3, 4, 8):
-                h = hkv * g
+                hkv = 2
                 for s in (1, 2, 63, 64, 65, 77, 96, 129, 512, 1000):
-                    q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(dtype)
-                    k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype)
-                            for _ in range(2))
                     for causal in (False, True):
-                        what = f"flash {dtype} dh={dh} G={g} S={s} causal={causal}"
-                        got = FK.flash_attention_cuda(q, k, v, causal=causal)
-                        err = compare(got, FR.mha_ref(*_f32(q, k, v), causal=causal), what,
-                                      rtol, atol)
-                        errs["flash_attn"][name] = max(errs["flash_attn"][name], err)
-                    if dtype == torch.bfloat16:  # a decode step is the prefill's row
-                        pos = torch.full((b,), s, dtype=torch.int32, device=dev)
-                        if not torch.equal(DK.decode_attention_cuda(
-                                q[:, :, -1].contiguous(), k, v, pos), got[:, :, -1]):
-                            raise AssertionError(f"{what}: a decode step differs from "
-                                                 "the prefill's last row")
+                        flash(2, hkv * g, hkv, s, dh, dtype, causal,
+                              f"flash {dtype} dh={dh} G={g} S={s} causal={causal}")
                 for s in (512, 4096):
                     # chunk edges and the engine's pos, mixed in one batch
-                    pos = torch.tensor([1, c - 1, c, c + 1, 77, 511, s], dtype=torch.int32,
-                                       device=dev)
-                    q = torch.randn(len(pos), h, dh, generator=gen, device=dev).to(dtype)
-                    k, v = (torch.randn(len(pos), hkv, s, dh, generator=gen,
-                                        device=dev).to(dtype) for _ in range(2))
-                    what = f"decode {dtype} dh={dh} G={g} S={s}"
-                    got = DK.decode_attention_cuda(q, k, v, pos)
-                    err = compare(got, DR.decode_attention_ref(*_f32(q, k, v), pos), what,
-                                  rtol, atol)
-                    errs["decode_attn"][name] = max(errs["decode_attn"][name], err)
-                    if not torch.equal(DK.decode_attention_cuda(q, k, v, pos), got):
-                        raise AssertionError(f"{what}: two calls differ")
-                    for i, p in enumerate(pos.tolist()):
-                        k[i, :, p:], v[i, :, p:] = 999.0, float("nan")
-                    if not torch.equal(DK.decode_attention_cuda(q, k, v, pos), got):
-                        raise AssertionError(f"{what}: slots past pos changed the output")
+                    decode([1, c - 1, c, c + 1, 77, 511, s], hkv * g, hkv, s, dh, dtype,
+                           f"decode {dtype} dh={dh} G={g} S={s}")
+        for dh, (h, hkv) in HEAD_DIM_HEADS.items():
+            for s in (1, 63, 64, 65, 129, 512):
+                for causal in (False, True):
+                    flash(1 if h > 16 else 2, h, hkv, s, dh, dtype, causal,
+                          f"flash {dtype} dh={dh} H={h}/{hkv} S={s} causal={causal}")
+            decode([1, c - 1, c, c + 1, 77, 511, 512], h, hkv, 512, dh, dtype,
+                   f"decode {dtype} dh={dh} H={h}/{hkv} S=512")
     torch.cuda.synchronize()
     return errs
 
@@ -565,7 +732,74 @@ def host_us(fn, calls: int = 1000) -> float:
     return took / calls * 1e6
 
 
-def attention_times(dev, gen, plen: int, steps: int, cache: int, iters: int) -> dict:
+def _sdpa_prefill(q, k, v):
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+
+def _sdpa_decode(q4, k, v, mask):
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def _flash_at(dev, gen, b, h, hkv, s, dh, iters: int) -> tuple[dict, tuple]:
+    """The bf16 prefill kernel at (B, H, Hkv, S, Dh), causal: checked
+    against its plain version, kernel and SDPA timed, with its bound; and
+    the inputs."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as FR
+
+    bf = torch.bfloat16
+    q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(bf) for _ in range(2))
+    shape = f"q ({b},{h},{s},{dh}) k/v ({b},{hkv},{s},{dh}) bf16 causal"
+    err = compare(FK.flash_attention_cuda(q, k, v), FR.mha_ref(*_f32(q, k, v)),
+                  f"flash {shape}", *ATTN_TOL["bfloat16"])
+    return with_bound({
+        "shape": shape, "max_abs_err": err,
+        "ms": device_ms(FK.flash_attention_cuda, iters, (q, k, v)),
+        "library_ms": device_ms(_sdpa_prefill, iters, (q, k, v)),
+        **_flash_work(b, h, hkv, s, dh)}, BF16_OPS_PER_S), (q, k, v)
+
+
+def _decode_inputs(dev, gen, b, h, hkv, cache, dh, n):
+    """bf16 q (B, H, Dh), a ``cache``-slot K/V cache, pos = n for every row
+    and the boolean mask SDPA takes for it."""
+    import torch
+
+    bf = torch.bfloat16
+    q = torch.randn(b, h, dh, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(b, hkv, cache, dh, generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    pos = torch.full((b,), n, dtype=torch.int32, device=dev)
+    mask = (torch.arange(cache, device=dev) < pos[:, None])[:, None, None, :]
+    return q, k, v, pos, mask
+
+
+def _decode_at(dev, gen, b, h, hkv, cache, dh, n, iters: int) -> dict:
+    """The bf16 decode kernel at pos n of a ``cache``-slot cache: checked,
+    kernel and SDPA timed, with its bound."""
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ref as DR
+
+    q, k, v, pos, mask = _decode_inputs(dev, gen, b, h, hkv, cache, dh, n)
+    shape = f"q ({b},{h},{dh}) cache ({b},{hkv},{cache},{dh}) pos={n} bf16"
+    err = compare(DK.decode_attention_cuda(q, k, v, pos),
+                  DR.decode_attention_ref(*_f32(q, k, v), pos), f"decode {shape}",
+                  *ATTN_TOL["bfloat16"])
+    return with_bound({
+        "shape": shape, "max_abs_err": err,
+        "ms": device_ms(DK.decode_attention_cuda, iters, (q, k, v, pos)),
+        "library_ms": device_ms(_sdpa_decode, iters, (q[:, :, None, :], k, v, mask)),
+        **_decode_work(b, h, hkv, n, dh)}, BF16_OPS_PER_S)
+
+
+def attention_times(dev, gen, plen: int, steps: int, cache: int, iters: int,
+                    baseline=None) -> dict:
     """Each attention kernel against its plain version, then kernel, plain
     and library times, at the serving engine's shapes: canonicalizer-100m
     (12 heads over 4 KV heads, head dim 64), a batch of 8 prompts padded to
@@ -576,77 +810,63 @@ def attention_times(dev, gen, plen: int, steps: int, cache: int, iters: int) -> 
     engine's ceiling, 8 prompts of ``cache`` tokens and decode at pos =
     ``cache``, also checked.  ``max_abs_err`` of each entry is the largest
     of its checks; the decode entry's ``host_us`` is the host time per call
-    of the dispatcher ``decode_attention`` and of the SDPA call."""
-    import torch
-    import torch.nn.functional as F
-
+    of the dispatcher ``decode_attention`` and of the SDPA call.  With a
+    baseline, kernel and baseline are timed in turns at the main path's
+    shapes (``ms``, ``baseline_ms``)."""
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.decode_attn import ref as DR
     from repro_torch.kernels.decode_attn.ops import decode_attention
-    from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn import ref as FR
 
-    b, h, hkv, dh, bf = 8, 12, 4, 64, torch.bfloat16
-    rtol, atol = ATTN_TOL["bfloat16"]
-
-    def sdpa_prefill(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-
-    def flash_at(s: int) -> tuple[dict, tuple]:
-        """Checked kernel and library times at S = s, and the inputs."""
-        q = torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf)
-        k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(bf)
-                for _ in range(2))
-        shape = f"q ({b},{h},{s},{dh}) k/v ({b},{hkv},{s},{dh}) bf16 causal"
-        err = compare(FK.flash_attention_cuda(q, k, v), FR.mha_ref(*_f32(q, k, v)),
-                      f"flash {shape}", rtol, atol)
-        return with_bound({
-            "shape": shape, "max_abs_err": err,
-            "ms": device_ms(lambda: FK.flash_attention_cuda(q, k, v), iters),
-            "library_ms": device_ms(lambda: sdpa_prefill(q, k, v), iters),
-            **_flash_work(b, h, hkv, s, dh)}, BF16_OPS_PER_S), (q, k, v)
-
-    flash, inputs = flash_at(plen)
-    reach, _ = flash_at(cache)
-    flash["plain_ms"] = device_ms(lambda: FR.mha_ref(*inputs), max(3, iters // 4))
+    b, h, hkv, dh = 8, 12, 4, 64
+    flash, inputs = _flash_at(dev, gen, b, h, hkv, plen, dh, iters)
+    reach, _ = _flash_at(dev, gen, b, h, hkv, cache, dh, iters)
+    flash["plain_ms"] = device_ms(FR.mha_ref, max(3, iters // 4), inputs)
     flash["max_abs_err"] = max(flash["max_abs_err"], reach["max_abs_err"])
     out = {"flash_attn": {**flash, "reach": reach}}
 
-    qd = torch.randn(b, h, dh, generator=gen, device=dev).to(bf)
-    kc, vc = (torch.randn(b, hkv, cache, dh, generator=gen, device=dev).to(bf)
-              for _ in range(2))
-    q4 = qd[:, :, None, :]
-
-    def decode_pos(n: int):
-        pos = torch.full((b,), n, dtype=torch.int32, device=dev)
-        mask = (torch.arange(cache, device=dev) < pos[:, None])[:, None, None, :]
-        return pos, lambda: F.scaled_dot_product_attention(
-            q4, kc, vc, attn_mask=mask, enable_gqa=True)
-
+    q, k, v, pos, mask = _decode_inputs(dev, gen, b, h, hkv, cache, dh, plen + 1)
     err = 0.0
     for n in sorted({plen + 1, plen + (steps + 1) // 2, plen + steps, cache}):
-        pos = torch.full((b,), n, dtype=torch.int32, device=dev)
-        err = max(err, compare(DK.decode_attention_cuda(qd, kc, vc, pos),
-                               DR.decode_attention_ref(*_f32(qd, kc, vc), pos),
-                               f"decode main path pos={n}", rtol, atol))
-    pos, sdpa = decode_pos(plen + 1)
-    out["decode_attn"] = {
+        pn = pos.clone().fill_(n)
+        err = max(err, compare(DK.decode_attention_cuda(q, k, v, pn),
+                               DR.decode_attention_ref(*_f32(q, k, v), pn),
+                               f"decode main path pos={n}", *ATTN_TOL["bfloat16"]))
+    q4 = q[:, :, None, :]
+    out["decode_attn"] = with_bound({
         "max_abs_err": err,
-        **timed(lambda: DK.decode_attention_cuda(qd, kc, vc, pos),
-                lambda: DR.decode_attention_ref(qd, kc, vc, pos), sdpa, iters),
+        **timed((DK.decode_attention_cuda, (q, k, v, pos)),
+                (DR.decode_attention_ref, (q, k, v, pos)), (_sdpa_decode, (q4, k, v, mask)),
+                iters),
         **_decode_work(b, h, hkv, plen + 1, dh),
         "shape": f"q ({b},{h},{dh}) cache ({b},{hkv},{cache},{dh}) pos={plen + 1} bf16",
-        "host_us": {"decode_attention": host_us(lambda: decode_attention(qd, kc, vc, pos)),
-                    "sdpa": host_us(sdpa)},
-    }
-    pos_c, sdpa_c = decode_pos(cache)
-    out["decode_attn"]["reach"] = with_bound({
-        "ms": device_ms(lambda: DK.decode_attention_cuda(qd, kc, vc, pos_c), iters),
-        "library_ms": device_ms(sdpa_c, iters),
-        **_decode_work(b, h, hkv, cache, dh),
-        "shape": f"q ({b},{h},{dh}) cache ({b},{hkv},{cache},{dh}) pos={cache} bf16",
+        "host_us": {"decode_attention": host_us(lambda: decode_attention(q, k, v, pos)),
+                    "sdpa": host_us(lambda: _sdpa_decode(q4, k, v, mask))},
     }, BF16_OPS_PER_S)
-    return {k: with_bound(t, BF16_OPS_PER_S) for k, t in out.items()}
+    out["decode_attn"]["reach"] = _decode_at(dev, gen, b, h, hkv, cache, dh, cache, iters)
+    if baseline is not None:
+        from repro_torch.kernels.flash_attn import kernel as FK
+
+        for name, call, base in (
+                ("flash_attn", (FK.flash_attention_cuda, inputs), (baseline.flash, inputs)),
+                ("decode_attn", (DK.decode_attention_cuda, (q, k, v, pos)),
+                 (baseline.decode, (q, k, v, pos)))):
+            out[name]["ms"], out[name]["baseline_ms"] = abba(call, base, iters)
+    return out
+
+
+def head_dim_times(dev, gen, plen: int, cache: int, iters: int) -> list[dict]:
+    """Both attention kernels at every head dim of ``HEAD_DIM_HEADS``, bf16:
+    prefill of 8 prompts of ``plen`` tokens and decode at pos = ``cache`` of
+    a ``cache``-slot cache, each checked and timed beside SDPA and its
+    bound."""
+    rows = []
+    for dh, (h, hkv) in HEAD_DIM_HEADS.items():
+        rows.append({"kernel": "flash_attn", "head_dim": dh,
+                     **_flash_at(dev, gen, 8, h, hkv, plen, dh, iters)[0]})
+        rows.append({"kernel": "decode_attn", "head_dim": dh,
+                     **_decode_at(dev, gen, 8, h, hkv, cache, dh, cache, iters)})
+    return rows
 
 
 # (rtol, atol) of the SSD scan against its plain version on the inputs' exact
@@ -740,7 +960,7 @@ def ssd_ops(b: int, s: int, h: int, p: int, n: int, chunk: int = 128) -> int:
     return min(chunked, 4 * b * h * s * n * p)
 
 
-def ssd_times(dev, gen, plen: int, cache: int, iters: int, baseline=None) -> dict:
+def ssd_times(dev, gen, plen: int, cache: int, iters: int) -> dict:
     """The SSD-scan kernel against its plain version, then kernel and plain
     times, at the main path's shapes: mamba2-780m's prefill of the first
     engine batch (8 prompts padded to ``plen`` tokens, 48 heads, P 64, N
@@ -761,16 +981,15 @@ def ssd_times(dev, gen, plen: int, cache: int, iters: int, baseline=None) -> dic
         shape = f"x ({b},{s},{h},{p}) bf16 dt ({b},{s},{h}) B/C ({b},{s},{n}), state out"
         t = {
             "max_abs_err": _ssd_check(x, dt, A, Bm, Cm, f"ssd {shape}"),
-            **timed(lambda: SK.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True),
-                    lambda: (SR.ssd_chunked(x, dt, A, Bm, Cm),
-                             SR.ssd_final_state(x, dt, A, Bm)), None, iters),
+            **timed((lambda *a: SK.ssd_scan_cuda(*a, return_state=True), (x, dt, A, Bm, Cm)),
+                    (lambda x, dt, A, Bm, Cm: (SR.ssd_chunked(x, dt, A, Bm, Cm),
+                                               SR.ssd_final_state(x, dt, A, Bm)),
+                     (x, dt, A, Bm, Cm)), None, iters),
             # x and y in bf16, dt, A, B, C and the final state in f32, each once
             "bytes": 2 * 2 * b * s * h * p + 4 * (b * s * h + h + 2 * b * s * n + b * h * p * n),
             "ops": ssd_ops(b, s, h, p, n),
             "shape": shape,
         }
-        if baseline is not None:
-            t["pr14_ms"] = device_ms(lambda: baseline.ssd(x, dt, A, Bm, Cm), max(3, iters // 4))
         t["bound_f32_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / F32_OPS_PER_S) * 1e3
         rows[s] = with_bound(t, BF16_OPS_PER_S)
     main = rows[plen]
@@ -784,8 +1003,9 @@ def fused_shape_table(counts, dev, gen, iters: int, baseline=None) -> list[dict]
     (N, M, P, K, S, G, op) -> launches), on random inputs of that shape:
     checked against its plain version, two calls compared bit for bit (they
     must be identical where the slots are per thread or warp, and for MIN/MAX
-    everywhere), its device ms (and the baseline's), and its byte bound
-    N (M+1+P) 4 + S G M 4 + bounds over the HBM rate."""
+    everywhere), its device ms (and the baseline's, in turns), the L2 cache
+    flushed before each call, and its byte bound N (M+1+P) 4 + S G M 4 +
+    bounds over the HBM rate."""
     import torch
 
     from repro_torch.kernels.seg_agg import kernel as K
@@ -806,10 +1026,13 @@ def fused_shape_table(counts, dev, gen, iters: int, baseline=None) -> list[dict]
             raise AssertionError(f"{what}: two calls differ ({tier} slots)")
         row = {"shape": [n, m, p, k, s, g, op], "launches": launches, "tier": tier,
                "bit_identical": same, "max_abs_err": err,
-               "ms": device_ms(lambda: K.seg_agg_fused_cuda(v, ids, pred, b, g, op), iters),
                "bound_ms": (n * (m + 1 + p) + s * g * m + b.numel()) * 4 / HBM_BYTES_PER_S * 1e3}
-        if baseline is not None:
-            row["pr14_ms"] = device_ms(lambda: baseline.fused(v, ids, pred, b, g, op), iters)
+        call = (lambda v, i, pr: K.seg_agg_fused_cuda(v, i, pr, b, g, op), (v, ids, pred))
+        if baseline is None:
+            row["ms"] = device_ms(*call[:1], iters, call[1])
+        else:
+            row["ms"], row["baseline_ms"] = abba(
+                call, (lambda v, i, pr: baseline.fused(v, i, pr, b, g, op), (v, ids, pred)), iters)
         table.append(row)
     return table
 
@@ -870,16 +1093,72 @@ def _prompt_len(tok, texts, max_len: int = 512) -> int:
                for t in texts)
 
 
+def _nl_batch(nl, wl, oracle, texts) -> dict:
+    """``texts`` in engine batches of 8 through a tenant whose NL
+    canonicalizer is ``nl``, a ``MemoizedNL(CanonicalizerService(engine))``,
+    the launch counts zeroed just before and read just after: every
+    NLResult keeps the protocol (signature None iff error set), every
+    served table matches the oracle, and the model launched its kernels
+    once per layer and engine batch (dense: ``flash_attn``; Mamba2:
+    ``ssd_scan`` and no attention) and, dense, ``decode_attn`` once per
+    layer and decode step."""
+    import torch
+
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.service.pipeline import QueryRequest, run_pipeline
+    from repro_torch.training.tokenizer import build_tokenizer
+
+    engine = nl.inner.engine
+    cfg = engine.cfg
+    tenant = serve.build_tenant(wl, device="cuda", nl=nl)
+    torch.cuda.synchronize()
+    steps0, host0, model0 = engine.steps, engine.host_s, engine.model_s
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = []
+    for i in range(0, len(texts), NL_BATCH):
+        results += run_pipeline(tenant, [QueryRequest(nl=t) for t in texts[i:i + NL_BATCH]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    steps = engine.steps - steps0
+    host_s, model_s = engine.host_s - host0, engine.model_s - model0
+    for r in nl._memo.values():
+        if (r.signature is None) != (r.error is not None):
+            raise AssertionError(f"NLResult breaks the protocol: {r}")
+    if nl.calls != len(texts):
+        raise AssertionError(f"{nl.calls} canonicalizer calls for {len(texts)} texts")
+    batches = -(-len(texts) // NL_BATCH)
+    want = ({"flash_attn": cfg.n_layers * batches, "decode_attn": cfg.n_layers * steps,
+             "ssd_scan": 0} if cfg.kind == "dense" else
+            {"flash_attn": 0, "decode_attn": 0, "ssd_scan": cfg.n_layers * batches})
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{cfg.name} launches {dict(launches)} for {len(texts)} "
+                             f"requests and {steps} steps")
+    tok = build_tokenizer([wl])
+    return {"launches": launches, "engine": engine, "summary": {
+        "requests": len(results), "statuses": _statuses(results),
+        "nl_gated": tenant.stats.nl_gated,
+        "errors": sorted({(r.error or "")[:40] for r in nl._memo.values()}),
+        "prompt_len": [_prompt_len(tok, texts[i:i + NL_BATCH])
+                       for i in range(0, len(texts), NL_BATCH)],
+        "engine_wall_s": wall, "decode_steps": steps, "host_s": host_s, "model_s": model_s,
+        "host_ms_per_step": host_s / max(steps, 1) * 1e3,
+        "model_ms_per_step": model_s / max(steps, 1) * 1e3,
+        "tokens_per_s": steps * NL_BATCH / wall,
+        "rows_with_output": sum(len(r.raw_json) > 0 for r in nl._memo.values()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        **oracle.check(results)}}
+
+
 def llm_phase(wl, oracle, seed: int) -> dict:
     import torch
 
     from repro_torch.configs.registry import get
     from repro_torch.core.nl_canon import MemoizedNL
-    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
-    from repro_torch.launch import serve
     from repro_torch.models import transformer as tt
     from repro_torch.serving.engine import CanonicalizerService, ServingEngine
-    from repro_torch.service.pipeline import QueryRequest, run_pipeline
     from repro_torch.training.tokenizer import build_tokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
@@ -936,52 +1215,23 @@ def llm_phase(wl, oracle, seed: int) -> dict:
     out["greedy_tokens_identical_share"] = sum(x == y for x, y in pairs) / max(len(pairs), 1)
     del p_card, p_cpu
 
-    # (c) NL requests through the pipeline, the bfloat16 engine on the card
+    # (c) NL requests through the pipeline, the bfloat16 engine on the card:
+    # one engine batch (mamba2's phase has two)
     engine = ServingEngine(cfg, tt.init_params(cfg, seed, device="cuda"), tok)
-    nl = MemoizedNL(CanonicalizerService(engine, wl.schema.name))
-    tenant = serve.build_tenant(wl, device="cuda", nl=nl)
-    texts = _nl_texts(wl, NL_BATCH)  # one engine batch: mamba2's phase has two
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    results = []
-    for i in range(0, len(texts), NL_BATCH):
-        results += run_pipeline(tenant, [QueryRequest(nl=t) for t in texts[i:i + NL_BATCH]])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
-    for r in nl._memo.values():
-        if (r.signature is None) != (r.error is not None):
-            raise AssertionError(f"NLResult breaks the protocol: {r}")
-    if nl.calls != len(texts):
-        raise AssertionError(f"{nl.calls} canonicalizer calls for {len(texts)} texts")
-    if launches["flash_attn"] != cfg.n_layers * len(texts) // NL_BATCH \
-            or launches["decode_attn"] != cfg.n_layers * engine.steps:
-        raise AssertionError(f"attention launches {launches} for {engine.steps} steps")
-    generated = sum(len(r.raw_json) > 0 for r in nl._memo.values())
-    out["pipeline"] = {
-        "requests": len(results), "statuses": _statuses(results),
-        "nl_gated": tenant.stats.nl_gated,
-        "errors": sorted({(r.error or "")[:40] for r in nl._memo.values()}),
-        "prompt_len": [_prompt_len(tok, texts[i:i + NL_BATCH])
-                       for i in range(0, len(texts), NL_BATCH)],
-        "engine_wall_s": wall, "decode_steps": engine.steps,
-        "host_ms_per_step": engine.host_s / max(engine.steps, 1) * 1e3,
-        "model_ms_per_step": engine.model_s / max(engine.steps, 1) * 1e3,
-        "tokens_per_s": engine.steps * NL_BATCH / wall,
-        "rows_with_output": generated,
-        **oracle.check(results),
-    }
-    return {"launches": launches, "summary": out, "engine": engine}
+    run = _nl_batch(MemoizedNL(CanonicalizerService(engine, wl.schema.name)), wl, oracle,
+                    _nl_texts(wl, NL_BATCH))
+    out["pipeline"] = run["summary"]
+    return {"launches": run["launches"], "summary": out, "engine": engine}
 
 
 # ---------------------------------------------------------------- mamba2
 
 
-def _teacher_forcing(mod, cfg, params, tokens, depth: int):
+def _teacher_forcing(mod, cfg, params, tokens, depth: int, **prefill_kw):
     """The first ``depth`` layers of the model: (forward over S, prefill
     logits, one decode step's logits, forward over S+1), the decode step fed
-    the last token again."""
+    the last token again (``prefill_kw``: a transformer's ``cache_len``,
+    room for that step)."""
     import torch
 
     cfg = dataclasses.replace(cfg, n_layers=depth)
@@ -989,7 +1239,7 @@ def _teacher_forcing(mod, cfg, params, tokens, depth: int):
     nxt = tokens[:, -1]
     with torch.inference_mode():
         full = mod.forward(cfg, params, tokens=tokens)
-        logits, caches, pos = mod.prefill(cfg, params, tokens=tokens)
+        logits, caches, pos = mod.prefill(cfg, params, tokens=tokens, **prefill_kw)
         step = mod.decode_step(cfg, params, nxt, caches, pos)[0]
         full2 = mod.forward(cfg, params, tokens=torch.cat([tokens, nxt[:, None]], dim=1))
     for what, t in (("forward", full), ("prefill", logits), ("decode", step),
@@ -1002,10 +1252,8 @@ def mamba2_phase(wl, oracle, seed: int) -> dict:
     import torch
 
     from repro_torch.configs.registry import get
-    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.models import mamba2
-    from repro_torch.service.pipeline import QueryRequest, run_pipeline
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.training.tokenizer import build_tokenizer
 
@@ -1077,43 +1325,119 @@ def mamba2_phase(wl, oracle, seed: int) -> dict:
 
     # (c) NL requests through the pipeline: the launcher's canonicalizer
     # over mamba2-780m, the bfloat16 engine on the card
-    nl = serve.llm_canonicalizer(wl, "mamba2-780m", seed=seed, device="cuda")
-    engine = nl.inner.engine
-    tenant = serve.build_tenant(wl, device="cuda", nl=nl)
-    texts = _nl_texts(wl, 2 * NL_BATCH)
+    run = _nl_batch(serve.llm_canonicalizer(wl, "mamba2-780m", seed=seed, device="cuda"),
+                    wl, oracle, _nl_texts(wl, 2 * NL_BATCH))
+    out["pipeline"] = run["summary"]
+    return {"launches": run["launches"], "summary": out, "engine": run["engine"]}
+
+
+def reduced_phase(wl, oracle, seed: int) -> dict:
+    """``launch.serve --reduced`` on the card: one engine batch of SSB NL
+    requests through ``serve.llm_canonicalizer(wl, "canonicalizer-100m",
+    reduced=True)`` (2 layers, d_model 64, 4/2 heads of head dim 16, the
+    head widened to the tokenizer), bfloat16 weights from ``seed``."""
+    from repro_torch.launch import serve
+
+    nl = serve.llm_canonicalizer(wl, "canonicalizer-100m", reduced=True, seed=seed,
+                                 device="cuda")
+    cfg = nl.inner.engine.cfg
+    out = _nl_batch(nl, wl, oracle, _nl_texts(wl, NL_BATCH))
+    out["summary"]["config"] = {k: getattr(cfg, k) for k in (
+        "name", "n_layers", "d_model", "n_heads", "kv_heads", "head_dim", "vocab")}
+    return out
+
+
+GEMMA_CPU_DEPTH = 4  # gemma-2b's card-vs-CPU check: f32 weights of 4 of 18 layers on the host
+GEMMA_STEPS = 8  # decode steps after gemma-2b's prefill of 8 prompts
+
+
+def gemma_phase(seed: int, plen: int) -> dict:
+    """gemma-2b at full width and depth (18 layers, d_model 2048, 8/1 heads
+    of head dim 256, geglu, tied vocab 256,000, ~2.5 B parameters), weights
+    initialised from ``seed`` on the card: (a) teacher forcing at full
+    depth in float32 and bfloat16, prefill logits against ``forward``
+    (2e-2) and one ``decode_step`` against ``forward`` over S+1 tokens
+    (3e-2); (b) the float32 model's first ``GEMMA_CPU_DEPTH`` layers on the
+    CPU (plain attention) against the card, prefill and decode logits
+    within 1e-3; (c) bfloat16 prefill of 8 token-id prompts of ``plen``
+    tokens and ``GEMMA_STEPS`` greedy decode steps, the launch counts
+    zeroed just before and read just after: one ``flash_attn`` per layer,
+    one ``decode_attn`` per layer and step."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tt
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get("gemma-2b")
+    out: dict = {"config": {k: getattr(cfg, k) for k in (
+        "n_layers", "d_model", "n_heads", "kv_heads", "head_dim", "d_ff", "vocab",
+        "activation", "tie_embeddings")}}
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    t0 = time.perf_counter()
+    p32 = tt.init_params(c32, seed, device="cuda")
+    # init_params draws in f32 and casts: the bf16 weights are these, cast
+    p16 = {k: ([{n: t.to(cfg.dtype) for n, t in lp.items()} for lp in v]
+               if k == "layers" else v.to(cfg.dtype)) for k, v in p32.items()}
+    out["parameters"] = sum(t.numel() for k, v in p32.items()
+                            for t in ([x for lp in v for x in lp.values()]
+                                      if k == "layers" else [v]))
+    out["init_s"] = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(seed)
+    b, s = 4, 64
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen).cuda()
+
+    # (a) teacher forcing at full depth
+    tf = {}
+    for c, params in ((c32, p32), (cfg, p16)):
+        name = str(c.dtype).removeprefix("torch.")
+        full, logits, step, full2 = _teacher_forcing(tt, c, params, tokens, c.n_layers,
+                                                     cache_len=s + 8)
+        tf[name] = {"prefill": compare(logits, full[:, -1], f"gemma prefill {name}",
+                                       2e-2, 2e-2),
+                    "decode": compare(step, full2[:, -1], f"gemma decode {name}", 3e-2, 3e-2),
+                    "logits_std": float(full.std()), "logits_absmax": float(full.abs().max())}
+        del full, full2
+    out["teacher_forcing_max_abs_err"] = tf
+
+    # (b) the float32 model's first layers on the CPU
+    c = dataclasses.replace(c32, n_layers=GEMMA_CPU_DEPTH)
+    cut = {**p32, "layers": p32["layers"][:GEMMA_CPU_DEPTH]}
+    runs = []
+    for p, t in ((cut, tokens[:2, :32]), (tt.to_device(cut, "cpu"), tokens[:2, :32].cpu())):
+        with torch.inference_mode():
+            logits, caches, pos = tt.prefill(c, p, tokens=t, cache_len=40)
+            step = tt.decode_step(c, p, t[:, -1], caches, pos)[0]
+        runs.append((finite(logits, "gemma prefill"), finite(step, "gemma decode")))
+    (card, card_step), (host, host_step) = runs
+    out[f"card_vs_cpu_max_abs_err_depth_{GEMMA_CPU_DEPTH}"] = {
+        "prefill": compare(card, host, "gemma card vs cpu prefill", 1e-3, 1e-3),
+        "decode": compare(card_step, host_step, "gemma card vs cpu decode", 1e-3, 1e-3)}
+    del p32, cut, runs, card, card_step
+    torch.cuda.empty_cache()
+
+    # (c) the path: 8 prompts, prefill and greedy decode steps, bfloat16
+    prompts = torch.randint(0, cfg.vocab, (NL_BATCH, plen), generator=gen).cuda()
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    results = []
-    for i in range(0, len(texts), NL_BATCH):
-        results += run_pipeline(tenant, [QueryRequest(nl=t) for t in texts[i:i + NL_BATCH]])
+    with torch.inference_mode():
+        logits, caches, pos = tt.prefill(cfg, p16, tokens=prompts, cache_len=plen + GEMMA_STEPS)
+        for _ in range(GEMMA_STEPS):
+            logits, caches, pos = tt.decode_step(cfg, p16, finite(logits, "gemma logits")
+                                                 .argmax(-1), caches, pos)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = launch_counts()
-    for r in nl._memo.values():
-        if (r.signature is None) != (r.error is not None):
-            raise AssertionError(f"NLResult breaks the protocol: {r}")
-    if nl.calls != len(texts):
-        raise AssertionError(f"{nl.calls} canonicalizer calls for {len(texts)} texts")
-    if launches["ssd_scan"] != cfg.n_layers * len(texts) // NL_BATCH \
-            or launches["flash_attn"] or launches["decode_attn"]:
-        raise AssertionError(f"mamba2 launches {launches} for {len(texts)} requests")
-    out["pipeline"] = {
-        "requests": len(results), "statuses": _statuses(results),
-        "nl_gated": tenant.stats.nl_gated,
-        "errors": sorted({(r.error or "")[:40] for r in nl._memo.values()}),
-        "prompt_len": [_prompt_len(tok, texts[i:i + NL_BATCH])
-                       for i in range(0, len(texts), NL_BATCH)],
-        "engine_wall_s": wall, "decode_steps": engine.steps,
-        "host_s": engine.host_s, "model_s": engine.model_s,
-        "host_ms_per_step": engine.host_s / max(engine.steps, 1) * 1e3,
-        "model_ms_per_step": engine.model_s / max(engine.steps, 1) * 1e3,
-        "tokens_per_s": engine.steps * NL_BATCH / wall,
-        "rows_with_output": sum(len(r.raw_json) > 0 for r in nl._memo.values()),
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        **oracle.check(results),
-    }
-    return {"launches": launches, "summary": out, "engine": engine}
+    finite(logits, "gemma logits")
+    if launches["flash_attn"] != cfg.n_layers \
+            or launches["decode_attn"] != cfg.n_layers * GEMMA_STEPS:
+        raise AssertionError(f"gemma launches {dict(launches)} for {GEMMA_STEPS} steps")
+    out["path"] = {"prompts": NL_BATCH, "prompt_len": plen, "decode_steps": GEMMA_STEPS,
+                   "wall_s": time.perf_counter() - t0,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    return {"launches": launches, "summary": out}
 
 
 # ----------------------------------------------------------------- serve
@@ -1344,22 +1668,25 @@ def profile_sample(n_fact: int, seed: int, requests: int = 64) -> dict:
             "host_own_ms_top": host_top}
 
 
+PROFILE_STEPS = 32  # decode steps of a profiled engine batch (a trace of 128 took minutes)
+
+
 def profile_engine(engine, wl) -> dict:
-    """One more engine batch of 8 NL questions (not seen before) under
-    ``torch.profiler``: device busy share of prefill + decode loop, device
-    ms per decode step next to the engine's host ms per step."""
+    """One more engine batch of 8 NL questions (not seen before), the
+    CanonicalizerService's prompts, at most ``PROFILE_STEPS`` constrained
+    decode steps, under ``torch.profiler``: device busy share of prefill +
+    decode loop, device ms per decode step next to the engine's host ms per
+    step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving.engine import CanonicalizerService
-
-    svc = CanonicalizerService(engine, wl.schema.name)
     texts = _nl_texts(wl, NL_BATCH, skip=2 * NL_BATCH)
+    prompts = [f"question: {t}\nsignature: " for t in texts]
     steps0, host0, model0 = engine.steps, engine.host_s, engine.model_s
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        svc.canonicalize_batch(texts)
+        engine.generate(prompts, max_new_tokens=PROFILE_STEPS, constrained=True)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     steps = engine.steps - steps0
@@ -1396,8 +1723,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="a checkout of an earlier commit (PR 14's kernel entries): its "
-                         "ssd_scan and kernel B are timed beside this checkout's")
+                    help="a checkout of an earlier commit (kernel A's entry without "
+                         "scratch): its seg_agg and attention kernels are timed beside "
+                         "this checkout's")
     args = ap.parse_args(argv)
 
     try:
@@ -1422,6 +1750,8 @@ def main(argv=None) -> int:
     print(f"[build] tensor-core and kernel B instances (ptxas -v, SASS): "
           f"{json.dumps(build_info())}")
     baseline = None if args.baseline is None else Baseline(args.baseline.resolve())
+    if baseline is not None:
+        print(f"[build] baseline instances (ptxas -v): {json.dumps(baseline.registers)}")
 
     t0 = time.perf_counter()
     wl = ssb.build(n_fact=args.n_fact, seed=args.seed)
@@ -1437,15 +1767,20 @@ def main(argv=None) -> int:
     errs = kernel_checks(args.n_fact, dev, gen)
     sweeps = {**attention_checks(dev, gen), "ssd_scan": ssd_checks(dev, gen)}
     times = {**kernel_times(args.n_fact, dev, gen, args.iters, baseline),
-             **attention_times(dev, gen, plen, MAX_NEW_TOKENS, MAX_LEN, 10 * args.iters),
-             **ssd_times(dev, gen, plen, MAX_LEN, 10 * args.iters, baseline)}
+             **attention_times(dev, gen, plen, MAX_NEW_TOKENS, MAX_LEN, 10 * args.iters,
+                               baseline),
+             **ssd_times(dev, gen, plen, MAX_LEN, 10 * args.iters)}
+    dims = head_dim_times(dev, gen, plen, MAX_LEN, 10 * args.iters)
     for name, by_dtype in sweeps.items():
-        errs[name] = max(*by_dtype.values(), times[name]["max_abs_err"])
+        errs[name] = max(*by_dtype.values(), times[name]["max_abs_err"],
+                         *(r["max_abs_err"] for r in dims if r["kernel"] == name))
     print(f"[kernels] {time.perf_counter() - t0:.1f} s; max abs err {json.dumps(errs)}; "
           f"attention and ssd sweeps by dtype {json.dumps(sweeps)}, at the main path's "
           f"shapes (bf16) {json.dumps({k: times[k]['max_abs_err'] for k in sweeps})}")
+
     def extra(t) -> str:
-        return "".join(f", {k} {t[k]:.5f}" for k in ("pr14_ms", "bound_f32_ms") if k in t)
+        out = "".join(f", {k} {t[k]:.5f}" for k in ("baseline_ms", "bound_f32_ms") if k in t)
+        return out + (f", {t['tier']} slots" if "tier" in t else "")
 
     for name, t in times.items():
         if "reach" in t:  # the engine's ceiling, before its main-path line
@@ -1455,15 +1790,31 @@ def main(argv=None) -> int:
             print(f"[kernels] {name} reach {r['shape']}: device ms per call: kernel "
                   f"{r['ms']:.4f}, {plain}; bound {r['bound_ms']:.5f} ({r['bound_by']})"
                   f"{extra(r)}")
+        for r in t.get("more", []):  # further shapes, before the main-path line
+            print(f"[kernels] {name} {r['shape']}: device ms per call: kernel "
+                  f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {r['library_ms']}; "
+                  f"bound {r['bound_ms']:.5f} ({r['bound_by']}){extra(r)}")
         print(f"[kernels] {name} {t['shape']}: device ms per call: kernel "
               f"{t['ms']:.4f}, plain {t['plain_ms']:.4f}, library {t['library_ms']}; "
               f"bound {t['bound_ms']:.5f} ({t['bound_by']}){extra(t)}")
         if "host_us" in t:
             print(f"[kernels] {name} host us per call: {json.dumps(t['host_us'])}")
+    for r in dims:
+        print(f"[kernels] {r['kernel']} head dim {r['head_dim']} {r['shape']}: device ms per "
+              f"call: kernel {r['ms']:.4f}, library {r['library_ms']:.4f}; bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}); max abs err {r['max_abs_err']:.3g}")
 
     t0 = time.perf_counter()
     llm = llm_phase(wl, oracle, args.seed)
     print(f"[llm] {json.dumps(llm['summary'])} launches {json.dumps(llm['launches'])} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    small = reduced_phase(wl, oracle, args.seed)
+    print(f"[reduced] {json.dumps(small['summary'])} launches "
+          f"{json.dumps(small['launches'])} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemma = gemma_phase(args.seed, plen)
+    print(f"[gemma] {json.dumps(gemma['summary'])} launches {json.dumps(gemma['launches'])} "
           f"in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ssm = mamba2_phase(wl, oracle, args.seed)
@@ -1476,7 +1827,7 @@ def main(argv=None) -> int:
     for row in table:
         print(f"[serve] seg_agg_fused shape {json.dumps(row)}")
     gap = {k: sum(r["launches"] * (r[k] - r["bound_ms"]) for r in table)
-           for k in ("ms", "pr14_ms") if all(k in r for r in table)}
+           for k in ("ms", "baseline_ms") if all(k in r for r in table)}
     print(f"[serve] seg_agg_fused: {len(table)} shapes, "
           f"{sum(r['launches'] for r in table)} launches, launches x (ms - bound) "
           f"{json.dumps(gap)}, bit-identical repeats at "
@@ -1493,6 +1844,11 @@ def main(argv=None) -> int:
         print(f"[profile] {what}{json.dumps(run())} in {time.perf_counter() - t0:.1f} s")
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
 
+    # each path's counts were zeroed just before it and read just after
+    for path, counts, names in (("reduced", small["launches"], ("flash_attn", "decode_attn")),
+                                ("gemma-2b", gemma["launches"], ("flash_attn", "decode_attn"))):
+        if not all(counts[n] for n in names):
+            raise AssertionError(f"{path}: a kernel was never launched: {dict(counts)}")
     path_launches = {"seg_agg": served["launches"]["seg_agg"],
                      "seg_agg_fused": served["launches"]["seg_agg_fused"],
                      "flash_attn": llm["launches"]["flash_attn"],

@@ -1,5 +1,7 @@
 """What the kernels' ablations share: rebuild one kernel library with parts
-of its source taken out, and time calls on the card.
+of its source taken out, and time calls on the card with the L2 cache
+flushed before each (``device_ms``, which ``chip_smoke.py`` times with
+too).
 
 A part is a list of (text in the source, its replacement); a part whose
 text is no longer in the source fails loudly, so the parts are kept with
@@ -12,6 +14,7 @@ serving path imports it.
 from __future__ import annotations
 
 import ctypes
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -44,33 +47,68 @@ def build_variants(src: Path, parts: dict[str, list[tuple[str, str]]],
         out.mkdir(parents=True, exist_ok=True)
         (out / src.name).write_text(variant_source(src, parts.get(part, [])))
         so = out / f"lib{src.stem}.so"
-        jobs[name] = (subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(out / src.name)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+        jobs[name] = (build.Job([(out / src.name, ())], so, f"ablation {name}"), so)
     libs = {}
-    for name, (proc, so) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for ablation {name}:\n{log}")
+    for name, (job, so) in jobs.items():
+        job.finish()
         libs[name] = ctypes.CDLL(str(so))
     return libs
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call under ``torch.profiler``."""
+L2_BYTES = 50 * 2 ** 20  # the H100's L2 cache
+FLUSH_BYTES = 8 * L2_BYTES  # read before each timed call: what was in L2 is evicted
+EDGE_CYCLES = 50_000_000  # ~25 ms of spinning at the H100's ~2 GHz
+EDGE_FLUSHES = 200  # ~25 ms of flushes at ~0.13 ms each
+
+
+def _is_flush(name: str) -> bool:
+    """Whether a traced kernel is ``device_ms``'s L2 flush: the only
+    reduction over int8 that the timed calls come near."""
+    return "reduce" in name and "signed char" in name
+
+
+def device_ms(fn, iters: int, args=(), warmup: int = 2) -> float:
+    """Device milliseconds per call of ``fn(*args)`` under
+    ``torch.profiler``: the median over ``iters`` calls of the summed
+    duration of the kernels and copies each call ran, so neither the
+    host's gaps between launches nor a stray slow call is counted.  Before
+    each call a row-wise max reads an int8 buffer of 8x the L2 cache, so no
+    call finds its inputs in L2, as a caller that reads them once does not;
+    in the trace, ordered by start, that flush's kernel opens each call's
+    kernels and is left out of its sum.  The profiler can lose the records
+    at a session's edges (more of them the longer the process has run), so
+    ~25 ms of device work before the first call and after the last take
+    their place; a call with no traced time is dropped, and fewer than half
+    the calls traced fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    buf = torch.ones((FLUSH_BYTES // 4096, 4096), dtype=torch.int8,
+                     device=torch.cuda.current_device())
+    for _ in range(warmup):
+        buf.amax(dim=1)
+        fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(EDGE_CYCLES)  # before the first flush: in no call's sum
         for _ in range(iters):
-            fn()
+            buf.amax(dim=1)
+            fn(*args)
+        for _ in range(EDGE_FLUSHES):  # calls with nothing to time: dropped
+            buf.amax(dim=1)
         torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    if total <= 0.0:
-        raise RuntimeError("the profiler traced no device time")
-    return total / iters
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    calls: list[float] = []
+    for e in events:
+        if _is_flush(e.name):
+            calls.append(0.0)
+        elif calls:
+            calls[-1] += e.time_range.elapsed_us() / 1e3
+    traced = [ms for ms in calls if ms > 0.0]
+    if len(traced) < iters / 2:
+        raise RuntimeError(f"the profiler traced device time for {len(traced)} of {iters} calls")
+    return statistics.median(traced)
 
 
 def card() -> str:

@@ -53,6 +53,13 @@
 // Numerics follow the Pallas kernel: f32 logits, softmax, p and
 // accumulator; the output is cast to q's dtype once.
 //
+// Built for the head dims in HEAD_DIMS below (those the reference's registry
+// and kernel tests use; kernels/build.py's ATTN_HEAD_DIMS lists the same).
+// The source is compiled once per head dim with -DHEAD_DIM=<dh>, which
+// defines decode_attn_launch_<dh> (that dim's f32 and bf16 instances), and
+// once without, which defines the dispatcher decode_attn_launch
+// (kernels/build.py links the units into one library).
+//
 // Plain C interface, bound with ctypes.  The launcher runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
@@ -63,11 +70,26 @@
 #include "../../csrc/attn_tile.cuh"
 #include "../../csrc/hopper_ptx.cuh"
 
+#define HEAD_DIMS(X) X(16) X(32) X(64) X(112) X(128) X(192) X(256)
+
+#define DECODE_ARGS                                                                    \
+  const void *q, const void *k, const void *v, const int *pos, void *out, int batch,  \
+      int kv_heads, int group, int seq, float scale, int dtype, float *part,          \
+      unsigned int *tickets, cudaStream_t stream
+#define DECLARE_LAUNCH(dh) int decode_attn_launch_##dh(DECODE_ARGS);
+extern "C" {
+HEAD_DIMS(DECLARE_LAUNCH)
+}
+
+constexpr int kChunk = 32;      // cache slots per f32 block: one per lane
+constexpr int kMaxGroup = 128;  // query heads per KV head
+
+#ifdef HEAD_DIM
+
 namespace {
 
 using attn::kBK;      // keys per tile (bf16)
 using attn::kNegInf;  // the logit of a masked slot
-constexpr int kMaxGroup = 128;  // query heads per KV head
 
 // ---------------------------------------------------------------- bf16
 
@@ -152,7 +174,6 @@ decode_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 
 // ----------------------------------------------------------------- f32
 
-constexpr int kChunk = 32;     // cache slots per f32 block: one per lane
 constexpr int kThreads = 128;  // four warps
 constexpr int kWarps = kThreads / 32;
 
@@ -301,6 +322,10 @@ template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* pos,
                         void* out, int batch, int kv_heads, int group, int seq,
                         float scale, cudaStream_t stream) {
+  static std::atomic<unsigned long long> smem_ready{0};  // past 48 KB from head dim 192
+  cudaError_t err =
+      ptx::allow_dynamic_smem(decode_bf16_kernel<DH>, bf16_smem_bytes<DH>(), smem_ready);
+  if (err != cudaSuccess) return err;
   dim3 grid((unsigned)(batch * kv_heads * ((group + 15) / 16)), (unsigned)(DH / kCols));
   decode_bf16_kernel<DH><<<grid, 32, bf16_smem_bytes<DH>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -329,6 +354,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* p
 
 }  // namespace
 
+#define CAT_(a, b) a##b
+#define CAT(a, b) CAT_(a, b)
+
+extern "C" int CAT(decode_attn_launch_, HEAD_DIM)(DECODE_ARGS) {
+  if (dtype == 0)
+    return (int)launch_f32<HEAD_DIM>(q, k, v, pos, out, part, tickets, batch, kv_heads,
+                                     group, seq, scale, stream);
+  return (int)launch_bf16<HEAD_DIM>(q, k, v, pos, out, batch, kv_heads, group, seq, scale,
+                                    stream);
+}
+
+#else  // the dispatcher
+
 extern "C" {
 
 const char* decode_attn_error_string(int code) {
@@ -341,8 +379,8 @@ const char* decode_attn_error_string(int code) {
 // them zero).  The bf16 instance takes no scratch.
 int decode_attn_chunk(void) { return kChunk; }
 
-// dtype: 0 float32, 1 bfloat16.  head_dim: 64 or 128, at most kMaxGroup
-// query heads per KV head (anything else is refused with
+// dtype: 0 float32, 1 bfloat16.  head_dim: one of HEAD_DIMS, at most
+// kMaxGroup query heads per KV head (anything else is refused with
 // cudaErrorInvalidValue; the Python wrapper checks first).  `part` and
 // `tickets` are the f32 instance's scratch described at decode_attn_chunk.
 int decode_attn_launch(const void* q, const void* k, const void* v,
@@ -351,24 +389,23 @@ int decode_attn_launch(const void* q, const void* k, const void* v,
                        int dtype, void* stream_ptr, void* part, void* tickets) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (batch <= 0) return (int)cudaSuccess;
-  if (kv_heads <= 0 || heads % kv_heads != 0) return (int)cudaErrorInvalidValue;
+  if (kv_heads <= 0 || heads % kv_heads != 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
   const int group = heads / kv_heads;
   if (group > kMaxGroup) return (int)cudaErrorInvalidValue;
   float* pf = static_cast<float*>(part);
   unsigned int* tk = static_cast<unsigned int*>(tickets);
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch_f32<64>(q, k, v, pos, out, pf, tk, batch, kv_heads, group, seq,
-                               scale, stream);
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch_f32<128>(q, k, v, pos, out, pf, tk, batch, kv_heads, group, seq,
-                                scale, stream);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_bf16<64>(q, k, v, pos, out, batch, kv_heads, group, seq, scale,
-                                stream);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_bf16<128>(q, k, v, pos, out, batch, kv_heads, group, seq, scale,
-                                 stream);
+  switch (head_dim) {
+#define CASE(dh)                                                                         \
+  case dh:                                                                               \
+    return decode_attn_launch_##dh(q, k, v, pos, out, batch, kv_heads, group, seq, scale, \
+                                   dtype, pf, tk, stream);
+    HEAD_DIMS(CASE)
+#undef CASE
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"
+
+#endif  // HEAD_DIM

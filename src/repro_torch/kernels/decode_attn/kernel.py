@@ -11,9 +11,9 @@ so a decode step matches ``flash_attention_cuda``'s row for the same token
 bit for bit (``ref.decode_tiled_ref`` is that arithmetic in plain
 PyTorch).  float32 splits the cache into chunks of ``CHUNK`` slots, one
 block each, and the last live block of each (batch, KV head) combines
-their partials (``ref.decode_chunked_ref``).  The kernel is built for head
-dims 64 and 128 and groups of up to ``MAX_GROUP`` heads; any other raises
-``ValueError``.  The wrapper checks its inputs, allocates the output,
+their partials (``ref.decode_chunked_ref``).  The kernel is built for the
+head dims in ``HEAD_DIMS`` (those of ``flash_attention_cuda``) and groups
+of up to ``MAX_GROUP`` heads; any other raises ``ValueError``.  The wrapper checks its inputs, allocates the output,
 launches on the current stream, raises on a launch error and counts each
 launch as ``decode_attn`` in ``binding.launch_counts``.  The plain version
 is ``ref.decode_attention_ref``.
@@ -27,9 +27,9 @@ import torch
 from ...analysis.sanitizer import make_lock
 from ..binding import (FLOAT, INT, PTR, check_aligned, check_tensor, count_launch,
                        raise_on)
-from ..build import load
+from ..build import ATTN_HEAD_DIMS, load
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = ATTN_HEAD_DIMS
 MAX_GROUP = 128  # float32 stages the group's scaled q and p in shared memory
 CHUNK = 32  # cache slots per float32 block (kChunk in csrc/decode_attn.cu)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 from pathlib import Path
 
 import torch
@@ -82,14 +81,12 @@ def build_variants(parts) -> dict[str, ctypes.CDLL]:
         (out_dir / "attn_tile.cuh").write_text(tile)
         (out_dir / "flash_attn.cu").write_text(cu)
         so = out_dir / "libflash_attn.so"
-        jobs[name] = (subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(out_dir / "flash_attn.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+        jobs[name] = (build.Job([(out_dir / "flash_attn.cu", flags)
+                                 for flags in build.DEFINES["flash_attn"]], so,
+                                f"ablation {name}"), so)
     libs = {}
-    for name, (proc, so) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for ablation {name}:\n{log}")
+    for name, (job, so) in jobs.items():
+        job.finish()
         lib = libs[name] = ctypes.CDLL(str(so))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attn_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, F, I, P]

@@ -30,9 +30,10 @@
 //   past S are zero-filled by the copy, never read.
 // - Products: S = Q K^T with mma.sync m16n8k16 (bf16 x bf16 -> f32, exact
 //   per product), Q fragments loaded once into registers, K fragments with
-//   ldmatrix; the f32 logits are scaled after the product (for head dim 64
-//   that is the Pallas kernel's q * scale exactly; for 128 it differs by one
-//   f32 rounding), and by log2(e) with it, so that p = exp2(s' - m')
+//   ldmatrix; the f32 logits are scaled after the product (for head dims
+//   16, 64 and 256, whose scale is a power of two, that is the Pallas
+//   kernel's q * scale exactly; for the others it differs by one f32
+//   rounding), and by log2(e) with it, so that p = exp2(s' - m')
 //   (ex2.approx: relative error ~2^-22, far inside the tolerance).
 //   Masking (keys >= S, causal; only on tiles that reach past some row's
 //   last key) and the online softmax stay in registers, row max and sum
@@ -42,6 +43,14 @@
 //   split into hi = bf16(p) and lo = bf16(p - hi), and both go through mma
 //   into the same f32 accumulator (about 16 significant bits of p), with V
 //   fragments from ldmatrix.trans.
+// - Head dims 16 to 128: each warp holds its 16 rows' Q fragments and all
+//   DH / 8 output n-tiles in registers.  At 192 and 256 that is more than
+//   a thread's 255 registers (the output alone is DH / 2 floats per lane),
+//   so the block has two column groups of 4 warps: warp w owns rows
+//   16 (w % 4).. and output columns (w / 4) DH / 2.., and both groups
+//   compute the same logits (the same instructions on the same rows), so
+//   the outputs are bit for bit those of one warp over all columns, and
+//   the decode kernel's, which splits the columns 8 at a time.
 //
 // f32 (the check dtype), `flash_attn_f32_kernel`: one block of 256 threads
 // per (batch * head, 64 query rows), f32 products on the CUDA cores (TF32
@@ -50,6 +59,12 @@
 // Numerics of both follow the Pallas kernel: logits, the online softmax, p
 // and the accumulator are f32; the output is acc / max(l, 1e-30) cast to
 // q's dtype.  Keys at or past S are masked with -1e30, so any S works.
+//
+// Built for the head dims in HEAD_DIMS below (those the reference's registry
+// and kernel tests use; kernels/build.py's ATTN_HEAD_DIMS lists the same).  The source is compiled once per head dim with
+// -DHEAD_DIM=<dh>, which defines flash_attn_launch_<dh> (that dim's f32 and
+// bf16 instances), and once without, which defines the dispatcher
+// flash_attn_launch (kernels/build.py links the units into one library).
 //
 // Plain C interface, bound with ctypes.  The launcher runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -60,6 +75,18 @@
 
 #include "../../csrc/attn_tile.cuh"
 #include "../../csrc/hopper_ptx.cuh"
+
+#define HEAD_DIMS(X) X(16) X(32) X(64) X(112) X(128) X(192) X(256)
+
+#define FLASH_ARGS                                                                 \
+  const void *q, const void *k, const void *v, void *out, int batch, int heads,   \
+      int kv_heads, int seq, int causal, float scale, int dtype, cudaStream_t stream
+#define DECLARE_LAUNCH(dh) int flash_attn_launch_##dh(FLASH_ARGS);
+extern "C" {
+HEAD_DIMS(DECLARE_LAUNCH)
+}
+
+#ifdef HEAD_DIM
 
 namespace {
 
@@ -88,13 +115,20 @@ struct FastDiv {
   }
 };
 
+// column groups of the output: two past 128, where one warp's 16 rows over
+// every column would take more registers than a thread has
+template <int DH>
+__host__ __device__ constexpr int column_groups() {
+  return DH > 128 ? 2 : 1;
+}
+
 template <int DH>
 constexpr int bf16_smem_bytes() {
   return (kBQ16 + 4 * kBK) * (DH + 8) * 2;  // Q, 2 x K, 2 x V
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kWarpsBf16 * 32)
+__global__ void __launch_bounds__(kWarpsBf16 * 32 * column_groups<DH>())
 flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
@@ -102,9 +136,12 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                        int seq, float scale, int causal, FastDiv group) {
   constexpr int LDS = DH + 8;     // padded row stride (elements)
   constexpr int KS = DH / 16;     // k-steps of Q K^T
-  constexpr int DT = DH / 8;      // n-tiles of the output
+  constexpr int NCG = column_groups<DH>();
+  constexpr int NO = DH / 8 / NCG;  // output n-tiles of one warp
   constexpr int CH = DH / 8;      // 16-byte chunks per row
-  constexpr int RPI = kWarpsBf16 * 32 / CH;  // rows one pass of the block copies
+  constexpr int NT = kWarpsBf16 * 32 * NCG;  // threads
+  static_assert(DH % 16 == 0 && (DH / 8) % NCG == 0 && (kBK * CH) % NT == 0,
+                "head dim: a multiple of 16 whose row tiles the block copies evenly");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (kBQ16, LDS)
   __nv_bfloat16* sk = sq + kBQ16 * LDS;                           // 2 x (64, LDS)
@@ -115,7 +152,8 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int rows = seq * group.d;  // packed rows of this (b, KV head)
   // causal: the tiles with the most K tiles start first
   const int r0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBQ16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32 % kWarpsBf16, lane = threadIdx.x % 32;
+  const int col0 = threadIdx.x / (kWarpsBf16 * 32) * NO * 8;  // the warp's first output column
   const long long hs = (long long)seq * DH;  // elements per head
   // head kvh * group + j of batch b starts at qh + j * hs
   const __nv_bfloat16* qh = q + ((long long)b * heads + (long long)kvh * group.d) * hs;
@@ -133,26 +171,24 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int k_end = causal ? group.div(last_row) + 1 : seq;
   const int n_tiles = (k_end + kBK - 1) / kBK;
 
-  // copies: this thread moves 16-byte column chunk `cc` of rows cr + RPI i;
+  // copies: pass i moves 16-byte chunk c % CH of row c / CH, c = tid + NT i;
   // rows past S (or past the packed rows) are zero-filled, never read
-  const int cr = threadIdx.x / CH, cc = (threadIdx.x % CH) * 8;
 #pragma unroll
-  for (int i = 0; i < kBQ16 / RPI; ++i) {
-    const int pr = r0 + cr + RPI * i;
+  for (int i = 0; i < kBQ16 * CH / NT; ++i) {
+    const int c = threadIdx.x + NT * i, r = c / CH, cc = c % CH * 8;
+    const int pr = r0 + r;
     const bool ok = pr < rows;
-    ptx::cp_async16(sq + (cr + RPI * i) * LDS + cc, ok ? row_at(qh, pr) + cc : qh,
-                    ok ? 16 : 0);
+    ptx::cp_async16(sq + r * LDS + cc, ok ? row_at(qh, pr) + cc : qh, ok ? 16 : 0);
   }
   auto copy_kv = [&](int t0, int buf) {
-    __nv_bfloat16* dk = sk + (buf * kBK + cr) * LDS + cc;
-    __nv_bfloat16* dv = sv + (buf * kBK + cr) * LDS + cc;
 #pragma unroll
-    for (int i = 0; i < kBK / RPI; ++i) {
-      const int key = t0 + cr + RPI * i;
+    for (int i = 0; i < kBK * CH / NT; ++i) {
+      const int c = threadIdx.x + NT * i, r = c / CH, cc = c % CH * 8;
+      const int key = t0 + r;
       const bool ok = key < seq;
       const long long off = (long long)key * DH + cc;
-      ptx::cp_async16(dk + RPI * i * LDS, ok ? kb + off : kb, ok ? 16 : 0);
-      ptx::cp_async16(dv + RPI * i * LDS, ok ? vb + off : vb, ok ? 16 : 0);
+      ptx::cp_async16(sk + (buf * kBK + r) * LDS + cc, ok ? kb + off : kb, ok ? 16 : 0);
+      ptx::cp_async16(sv + (buf * kBK + r) * LDS + cc, ok ? vb + off : vb, ok ? 16 : 0);
     }
   };
   copy_kv(0, 0);
@@ -171,7 +207,7 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const float scale2 = scale * 1.4426950408889634f;  // logits in log2 units: p = 2^(s' - m')
 
   uint32_t qf[KS][4];
-  attn::Rows<DT> st;
+  attn::Rows<NO> st;
   st.init();
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -183,17 +219,17 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     if (t == 0) attn::load_q<DH, LDS>(qf, sq + warp * 16 * LDS, lane);
     if (warp_live && t0 < warp_kmax)  // else every key of the tile is masked
-      attn::tile<DH, LDS, DT, LDS>(st, qf, sk + buf * kBK * LDS, sv + buf * kBK * LDS,
-                                   t0 + kBK > warp_kmin, kmax0 - t0, kmax1 - t0, scale2,
-                                   lane);
+      attn::tile<DH, LDS, NO, LDS>(st, qf, sk + buf * kBK * LDS,
+                                   sv + buf * kBK * LDS + col0, t0 + kBK > warp_kmin,
+                                   kmax0 - t0, kmax1 - t0, scale2, lane);
     __syncthreads();  // every warp is done with buffer `buf` before it is refilled
   }
   ptx::cp_async_wait<0>();
 
   if (!warp_live) return;
   const int pr0 = wr0 + g, pr1 = wr0 + g + 8;
-  attn::store(st, pr0 < rows ? row_at(oh, pr0) : nullptr,
-              pr1 < rows ? row_at(oh, pr1) : nullptr, lane);
+  attn::store(st, pr0 < rows ? row_at(oh, pr0) + col0 : nullptr,
+              pr1 < rows ? row_at(oh, pr1) + col0 : nullptr, lane);
 }
 
 // ----------------------------------------------------------------- f32
@@ -354,7 +390,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
   if (rows > 0x7fffffffLL || (long long)batch * kv_heads > 65535)
     return cudaErrorInvalidValue;
   dim3 grid((unsigned)tiles, (unsigned)(batch * kv_heads));
-  flash_attn_bf16_kernel<DH><<<grid, kWarpsBf16 * 32, smem, stream>>>(
+  flash_attn_bf16_kernel<DH><<<grid, kWarpsBf16 * 32 * column_groups<DH>(), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), heads,
       kv_heads, seq, scale, causal, FastDiv(heads / kv_heads));
@@ -381,33 +417,45 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
+#define CAT_(a, b) a##b
+#define CAT(a, b) CAT_(a, b)
+
+extern "C" int CAT(flash_attn_launch_, HEAD_DIM)(FLASH_ARGS) {
+  if (dtype == 0)
+    return (int)launch_f32<HEAD_DIM>(q, k, v, out, batch, heads, kv_heads, seq, scale,
+                                     causal, stream);
+  return (int)launch_bf16<HEAD_DIM>(q, k, v, out, batch, heads, kv_heads, seq, scale,
+                                    causal, stream);
+}
+
+#else  // the dispatcher
+
 extern "C" {
 
 const char* flash_attn_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// dtype: 0 float32, 1 bfloat16.  head_dim: 64 or 128 (anything else is
-// refused with cudaErrorInvalidValue; the Python wrapper checks first).
+// dtype: 0 float32, 1 bfloat16.  head_dim: one of HEAD_DIMS (anything else
+// is refused with cudaErrorInvalidValue; the Python wrapper checks first).
 int flash_attn_launch(const void* q, const void* k, const void* v, void* out,
                       int batch, int heads, int kv_heads, int seq, int head_dim,
                       int causal, float scale, int dtype, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (batch <= 0 || seq <= 0) return (int)cudaSuccess;
-  if (kv_heads <= 0 || heads % kv_heads != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64)
-    return (int)launch_f32<64>(q, k, v, out, batch, heads, kv_heads, seq, scale,
-                               causal, stream);
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch_f32<128>(q, k, v, out, batch, heads, kv_heads, seq, scale,
-                                causal, stream);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_bf16<64>(q, k, v, out, batch, heads, kv_heads, seq, scale,
-                                causal, stream);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_bf16<128>(q, k, v, out, batch, heads, kv_heads, seq, scale,
-                                 causal, stream);
+  if (kv_heads <= 0 || heads % kv_heads != 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  switch (head_dim) {
+#define CASE(dh)                                                                      \
+  case dh:                                                                            \
+    return flash_attn_launch_##dh(q, k, v, out, batch, heads, kv_heads, seq, causal, \
+                                  scale, dtype, stream);
+    HEAD_DIMS(CASE)
+#undef CASE
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"
+
+#endif  // HEAD_DIM

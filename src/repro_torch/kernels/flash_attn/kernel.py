@@ -7,7 +7,10 @@ blockwise online softmax in f32, K tiles above the diagonal skipped.  In
 bfloat16 the products run on the tensor cores, each K/V tile staged once
 per GQA group (``ref.flash_tiled_ref`` is the same arithmetic in plain
 PyTorch); float32 multiplies on the CUDA cores.  The kernel is built for
-head dims 64 and 128; any other raises ``ValueError``.
+the head dims in ``HEAD_DIMS`` (16, 32, 64, 112, 128, 192 and 256: those
+of the reference's registry and kernel tests); any other raises
+``ValueError``, where the Pallas kernel takes any head dim (ROADMAP.md,
+deliberate departures).
 The wrapper checks its inputs, allocates the output, launches on the
 current stream, raises on a launch error and counts each launch as
 ``flash_attn`` in ``binding.launch_counts``.  The plain version is
@@ -21,9 +24,9 @@ import torch
 
 from ..binding import (FLOAT, INT, PTR, check_aligned, check_tensor, count_launch,
                        raise_on)
-from ..build import load
+from ..build import ATTN_HEAD_DIMS, load
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = ATTN_HEAD_DIMS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

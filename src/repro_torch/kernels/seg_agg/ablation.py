@@ -1,13 +1,15 @@
-"""Where the filter-fused aggregation kernel's (kernel B's) time goes, on
-the card.
+"""Where the grouped-aggregation kernels' time goes, on the card.
 
 Builds ``csrc/seg_agg.cu`` again with one part taken out at a time and
-times kernel B in each build beside the full kernel at the serve phase's
-shapes over ``--rows`` rows: the dashboard refresh's shared scan (M 3, P 1,
-6 signatures, G 5) and single-signature misses of 5, 250 and 6250 groups
-(per-warp, per-thread, per-block and per-block slots).  A diagnostic for work on the
-kernel (``kernels/ablation.py`` has the mechanism); nothing on the serving
-path imports it.
+times both kernels in each build beside the full kernel over ``--rows``
+rows, the L2 cache flushed before each call (``kernels/ablation.py``
+``device_ms``).  Kernel B at the serve phase's shapes: the dashboard refresh's
+shared scan (M 3, P 1, 6 signatures, G 5) and single-signature misses of
+5, 250 and 6250 groups (per-warp, per-thread, per-block and per-block
+slots).  Kernel A at the host-mask request's shape (M 2, G 5, SUM, select)
+and at G = 84 and 6250 (per-thread, per-block and per-block slots).  A
+diagnostic for work on the kernels (``kernels/ablation.py`` has the
+mechanism); nothing on the serving path imports it.
 
     PYTHONPATH=src python -m repro_torch.kernels.seg_agg.ablation
 
@@ -48,6 +50,8 @@ PARTS: dict[str, list[tuple[str, str]]] = {
 
 # (M, G, P, S): the dashboard's shared scan, then single-signature misses
 SHAPES = ((3, 5, 1, 6), (2, 5, 1, 1), (2, 250, 1, 1), (2, 6250, 1, 1))
+# (M, G) of kernel A, SUM under the select contract
+SHAPES_A = ((2, 5), (2, 84), (2, 6250))
 
 
 def main(argv=None) -> int:
@@ -64,6 +68,10 @@ def main(argv=None) -> int:
         lib.seg_agg_fused_launch.restype = I
         lib.seg_agg_fused_plan.argtypes = [L, I, I, I, I, I, I, ctypes.POINTER(L)]
         lib.seg_agg_fused_plan.restype = I
+        lib.seg_agg_launch.argtypes = [P, P, P, P, L, I, I, I, I, P, P, P]
+        lib.seg_agg_launch.restype = I
+        lib.seg_agg_plan.argtypes = [L, I, I, I, I, ctypes.POINTER(L)]
+        lib.seg_agg_plan.restype = I
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(0)
     n = args.rows
@@ -82,14 +90,37 @@ def main(argv=None) -> int:
             tier = lib.seg_agg_fused_plan(n, m, p, 1, s, g, 0, ctypes.byref(work))
             ws = torch.empty(max(work.value, 1), device=dev)
 
-            def call(lib=lib, ws=ws):
+            def call(v, ids, pred, lib=lib, ws=ws):
                 rc = lib.seg_agg_fused_launch(v.data_ptr(), ids.data_ptr(), pred.data_ptr(),
                                               b.data_ptr(), out.data_ptr(), n, m, p, 1, s, g,
                                               0, stream, ws.data_ptr(), bar.data_ptr())
                 if rc:
                     raise RuntimeError(f"launch failed: CUDA error {rc}")
-            row[f"{name} (tier {tier})"] = device_ms(call, args.iters)
+            row[f"{name} (tier {tier})"] = device_ms(call, args.iters, (v, ids, pred))
         print(json.dumps({"shape": f"values ({n},{m}) pred ({n},{p}) S={s} G={g} sum",
+                          "device_ms": row, "card": card()}))
+    for m, g in SHAPES_A:
+        v = torch.rand(n, m, generator=gen, device=dev)
+        ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
+        mask = (torch.rand(n, generator=gen, device=dev) > 0.5).float()
+        out = torch.empty(g, m, device=dev)
+        row = {}
+        for name, lib in libs.items():
+            work = L(0)
+            tier = lib.seg_agg_plan(n, m, g, 0, 1, ctypes.byref(work))
+            if tier < 0:  # a variant's tier this instance is not built for
+                row[name] = None
+                continue
+            ws = torch.empty(max(work.value, 1), device=dev)
+
+            def call(v, ids, mask, lib=lib, ws=ws):
+                rc = lib.seg_agg_launch(v.data_ptr(), ids.data_ptr(), mask.data_ptr(),
+                                        out.data_ptr(), n, m, g, 0, 1, stream, ws.data_ptr(),
+                                        bar.data_ptr())
+                if rc:
+                    raise RuntimeError(f"launch failed: CUDA error {rc}")
+            row[f"{name} (tier {tier})"] = device_ms(call, args.iters, (v, ids, mask))
+        print(json.dumps({"shape": f"kernel A values ({n},{m}) mask ({n},) G={g} sum select",
                           "device_ms": row, "card": card()}))
     return 0
 

@@ -2,9 +2,10 @@
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // repro/kernels/seg_agg/kernel.py:
-//   * seg_agg_kernel        <- _seg_agg_kernel       (explicit row mask)
-//   * seg_agg_fused_kernel  <- _seg_agg_fused_kernel (mask built from range
-//                                                     bounds inside the kernel)
+//   * kernel A, seg_agg_launch       <- _seg_agg_kernel       (explicit row mask)
+//   * kernel B, seg_agg_fused_launch <- _seg_agg_fused_kernel (mask built from
+//                                       range bounds inside the kernel)
+// both instances of one template, seg_agg_tiled_kernel.
 //
 // What bounds it on the card: bytes read.  Each row is read once (values,
 // group id, and the mask or the predicate columns) and does a handful of
@@ -14,25 +15,24 @@
 // has fast shared memory, so each block keeps a partial of the output
 // there.
 //
-// Kernel A (PR 11's design): every row adds into its group's slot of the
-// block's shared-memory partial of one group tile (grid.y) with an atomic,
-// and the block merges the touched slots into the output with one global
-// atomic each; a group space too large for a few tiles goes straight to
-// global atomics.  Sums are therefore not bit-reproducible; MIN/MAX are.
-//
 // Kernel B evaluates S signatures per row: it tests the row's P predicate
 // values against every signature's OR of K inclusive [lo, hi] ranges (NaN
 // sentinel lo=hi=NaN matches NaN values; the pad range lo=+inf, hi=-inf
 // never matches) and adds the row into the (S, G, M) output slot of every
 // signature it satisfies, so the shared-scan batch never builds the
-// (N, S*M) expansion.  PR 11's kernel B walked one row per thread through
-// dependent loads (id, then predicate, then values) and contended shared
-// atomics; the design here:
+// (N, S*M) expansion.  Kernel A is the same kernel with one signature whose
+// row mask is given: the template parameter MASK says where a row's mask
+// comes from (kRanges: kernel B's range tests over P predicate columns;
+// kSelect: a given (N,) column, rows with mask > 0.5 pass; kMultiply: the
+// same column, every row passes and SUM adds value * mask).  Walking one
+// row per thread through dependent loads (id, then mask or predicate, then
+// values), with a branch per row, contended shared atomics and a fill and
+// a decode launch around, reached a quarter of the bound; the design here:
 //
 // * A persistent grid (as many blocks as fit on the SMs at once; each block
 //   walks row tiles blockIdx.x, + gridDim.x, ...) stages each tile's ids,
-//   values and predicate columns, whole and unconditionally, with 16-byte
-//   cp.async, a tile ahead, so every byte the bound counts is read once and
+//   values and predicate (or mask) columns, whole and unconditionally, with
+//   16-byte cp.async, a tile ahead, so every byte the bound counts is read once and
 //   the loads never wait on a branch; small tiles (1024 rows) keep blocks
 //   small, so several share an SM.  Each thread then tests 4 rows at once
 //   without branches (bitwise, not short-circuit, operators), so their
@@ -48,15 +48,18 @@
 //   are slow.  Per block: one copy, shared-memory atomics (a float
 //   add there is a compare-and-swap loop).  Past what a block holds (~56 k
 //   slots less the staging), global atomics.  So one signature over more
-//   than ~84 slots (G > 42 for a COUNT, SUM block), or several over more
-//   than ~2,000, take atomics and are not bit-reproducible.
+//   than ~84 slots (G > 42 for a COUNT, SUM block; kernel A at M = 2 from
+//   G = 41), or several over more than ~2,000, take atomics and are not
+//   bit-reproducible.
 // * No global float atomics below that: each block's copies are combined
 //   in a fixed order into its partial in a workspace the wrapper
 //   owns; after a grid-wide barrier (a cooperative launch, so the blocks
 //   are co-resident; the counter resets itself) every block combines a
 //   share of the slots over all partials in a fixed order, and writes the
 //   output: the identity where no row reached a slot, MIN/MAX keys decoded.
-//   One launch, no fill or decode pass.
+//   In the global tier the blocks fill the output with the identity, meet
+//   at the barrier, add with global atomics, meet again and decode.  One
+//   launch in every tier, no fill or decode pass.
 //
 // Numerics.  Sums accumulate in f32, as on the TPU.  With per-thread and
 // per-warp slots SUM and MIN/MAX are bit-reproducible by construction:
@@ -68,7 +71,8 @@
 // folded into the ordered-integer key, with no float comparison against
 // NaN.  Kernel A has two mask contracts: `select` (masked-out rows reach no
 // group) and multiply (SUM adds value*mask, so a masked-out NaN still
-// poisons its group, as seg_agg_ref does).
+// poisons its group, as seg_agg_ref does).  Rows whose id lies outside
+// [0, G) reach no group in either kernel.
 //
 // Plain C interface, bound with ctypes.  Every launcher runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -83,16 +87,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kOpSum = 0;
 constexpr int kOpMin = 1;
 constexpr int kOpMax = 2;
-// at most this many 32-bit partial slots per block (64 KB of shared memory)
-constexpr long long kSmemSlots = 16384;
-// above this many group tiles the shared-memory partial is not worth the
-// re-reads of the rows: accumulate in global memory instead
-constexpr long long kMaxTiles = 8;
-constexpr long long kMinRowsPerBlock = 2048;
 // NaN flags: below every ordered key of a real float (MIN) or above (MAX)
 constexpr int kNanMin = -2147483647 - 1;  // 0x80000000
 constexpr int kNanMax = 2147483647;       // 0x7fffffff
@@ -131,88 +128,7 @@ __device__ __forceinline__ long long lmin(long long a, long long b) {
   return a < b ? a : b;
 }
 
-__device__ __forceinline__ void fill_slots(float* p, long long slots, int bits) {
-  for (long long i = threadIdx.x; i < slots; i += blockDim.x) {
-    p[i] = __int_as_float(bits);
-  }
-}
-
-// Merge a block's shared-memory partial into the output; untouched slots
-// (still the identity) cost nothing.
-template <int OP>
-__device__ void merge_partial(float* out, const float* part, long long slots) {
-  for (long long i = threadIdx.x; i < slots; i += blockDim.x) {
-    float v = part[i];
-    if (OP == kOpSum) {
-      if (v != 0.0f) atomicAdd(out + i, v);
-    } else {
-      int k = __float_as_int(v);
-      if (k == identity_bits(OP)) continue;
-      if (OP == kOpMin) {
-        atomicMin(reinterpret_cast<int*>(out) + i, k);
-      } else {
-        atomicMax(reinterpret_cast<int*>(out) + i, k);
-      }
-    }
-  }
-}
-
-__global__ void fill_kernel(float* out, long long total, int bits) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    out[i] = __int_as_float(bits);
-  }
-}
-
-// MIN/MAX keys back to floats, the NaN flag to NaN.
-__global__ void decode_kernel(float* out, long long total, int nan_key) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    int k = __float_as_int(out[i]);
-    out[i] = k == nan_key ? __int_as_float(0x7fc00000) : key_value(k);
-  }
-}
-
-// Kernel A: values (N, M) f32, ids (N,) i32, mask (N,) f32 -> out (G, M).
-template <int OP, bool SELECT>
-__global__ void seg_agg_kernel(const float* __restrict__ values,
-                               const int* __restrict__ ids,
-                               const float* __restrict__ mask,
-                               float* __restrict__ out, long long n, int m,
-                               int num_groups, int tile_groups,
-                               long long rows_per_block, bool use_smem) {
-  extern __shared__ float smem[];
-  const int g0 = blockIdx.y * tile_groups;
-  const int g1 = min(g0 + tile_groups, num_groups);
-  const long long slots = (long long)(g1 - g0) * m;
-  float* acc = use_smem ? smem : out + (long long)g0 * m;
-  if (use_smem) {
-    fill_slots(smem, slots, identity_bits(OP));
-    __syncthreads();
-  }
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long r1 = lmin(r0 + rows_per_block, n);
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int g = ids[r];
-    if (g < g0 || g >= g1) continue;
-    const float w = mask[r];
-    const bool multiply = OP == kOpSum && !SELECT;
-    if (!multiply && !(w > 0.5f)) continue;
-    float* slot = acc + (long long)(g - g0) * m;
-    const float* v = values + r * m;
-    for (int c = 0; c < m; ++c) {
-      accumulate<OP>(slot + c, multiply ? v[c] * w : v[c]);
-    }
-  }
-  if (use_smem) {
-    __syncthreads();
-    merge_partial<OP>(out + (long long)g0 * m, smem, slots);
-  }
-}
-
-// ---------------------------------------------------------------- kernel B
+// ------------------------------------------------------- kernels A and B
 
 constexpr int kFusedThreads = 256;
 constexpr int kFusedWarps = kFusedThreads / 32;
@@ -221,6 +137,9 @@ constexpr int kRowsPerThread = 4;     // rows a thread tests at once, their chai
 constexpr int kCombineSlots = 64;     // slots per combine step, at most
 constexpr size_t kSmemLimit = 232448; // dynamic shared memory a block may use
 enum Tier { kPerThread = 0, kPerWarp = 1, kPerBlock = 2, kGlobal = 3 };
+// where a row's mask comes from: kernel B's range tests, or kernel A's
+// given column under the select or the multiply contract
+enum MaskSource { kRanges = 0, kSelect = 1, kMultiply = 2 };
 
 __device__ __forceinline__ float combine_op(int op, float a, float b) {
   if (op == kOpSum) return a + b;
@@ -237,11 +156,12 @@ __device__ __forceinline__ float finish(float v) {
   return k == (OP == kOpMin ? kNanMin : kNanMax) ? __int_as_float(0x7fc00000) : key_value(k);
 }
 
-// A row's M values v into slots base.. of the tier's copy: a thread's own
-// (per thread: slot i at i * 256 + thread) with plain loads and stores,
-// four columns at a time; one shared with other threads by atomics.
-template <int OP, int TIER>
-__device__ __forceinline__ void add_row(float* q, const float* v, int m) {
+// A row's M values v (times w under the multiply contract, SCALE) into
+// slots base.. of the tier's copy: a thread's own (per thread: slot i at
+// i * 256 + thread) with plain loads and stores, four columns at a time;
+// one shared with other threads by atomics.
+template <int OP, int TIER, bool SCALE>
+__device__ __forceinline__ void add_row(float* q, const float* v, int m, float w) {
   if (TIER == kPerThread) {
     for (int c0 = 0; c0 < m; c0 += 4) {
       float old[4], add[4];
@@ -249,7 +169,7 @@ __device__ __forceinline__ void add_row(float* q, const float* v, int m) {
       for (int u = 0; u < 4; ++u) {
         if (c0 + u < m) {
           old[u] = q[(c0 + u) * kFusedThreads];
-          add[u] = v[c0 + u];
+          add[u] = SCALE ? v[c0 + u] * w : v[c0 + u];
         }
       }
 #pragma unroll
@@ -262,7 +182,7 @@ __device__ __forceinline__ void add_row(float* q, const float* v, int m) {
       }
     }
   } else {
-    for (int c = 0; c < m; ++c) accumulate<OP>(q + c, v[c]);
+    for (int c = 0; c < m; ++c) accumulate<OP>(q + c, SCALE ? v[c] * w : v[c]);
   }
 }
 
@@ -350,20 +270,23 @@ __device__ __forceinline__ void grid_barrier(unsigned int* bar) {
   __syncthreads();
 }
 
-// Kernel B: values (N, M), ids (N,), pred (N, P), bounds (S, P, K, 2)
-// -> out (S, G, M); part: gridDim.x partials of S*G*M slots (not the
-// global tier); bar: the grid barrier's two counters.
-template <int OP, int TIER>
+// Kernels A and B: values (N, M), ids (N,), pred (N, P) -- kernel A: its
+// mask, P = 1 -- and bounds (S, P, K, 2) -- kernel A: none, S = 1 -> out
+// (S, G, M); part: gridDim.x partials of S*G*M slots (not the global
+// tier); bar: the grid barrier's two counters.
+template <int OP, int TIER, int MASK>
 __global__ void __launch_bounds__(kFusedThreads)
-seg_agg_fused_kernel(const float* __restrict__ values, const int* __restrict__ ids,
+seg_agg_tiled_kernel(const float* __restrict__ values, const int* __restrict__ ids,
                      const float* __restrict__ pred, const float* __restrict__ bounds,
                      float* __restrict__ out, float* __restrict__ part,
                      unsigned int* __restrict__ bar, long long n, int m, int p, int k,
                      int s_count, int num_groups, int rows) {
+  static_assert(MASK != kMultiply || TIER != kPerWarp, "the hand-off adds unscaled values");
+  static_assert(MASK != kMultiply || OP == kOpSum, "the multiply contract is SUM's");
   // slot indices fit an int below the global tier (the slots are in shared memory)
   using Idx = std::conditional_t<TIER == kGlobal, long long, int>;
   extern __shared__ __align__(16) float smem[];
-  const int nb = s_count * p * k * 2;
+  const int nb = MASK == kRanges ? s_count * p * k * 2 : 0;
   const int stage_floats = rows * (1 + m + p);
   float* sb = smem;
   float* stages = smem + ((nb + 3) & ~3);
@@ -375,10 +298,14 @@ seg_agg_fused_kernel(const float* __restrict__ values, const int* __restrict__ i
   if (TIER != kGlobal) {
     const long long copies = TIER == kPerThread ? kFusedThreads : TIER == kPerWarp ? kFusedWarps : 1;
     for (long long i = tid; i < copies * nslots; i += kFusedThreads) slots[i] = ident;
+  } else {  // the output holds the identity before any block adds to it
+    for (long long i = (long long)blockIdx.x * kFusedThreads + tid; i < nslots;
+         i += (long long)gridDim.x * kFusedThreads)
+      out[i] = ident;
   }
 
   // row tile t of this block (tile blockIdx.x + t * gridDim.x) into stage st:
-  // ids, then values, then predicate columns, each copied whole
+  // ids, then values, then predicate (mask) columns, each copied whole
   const long long tiles = (n + rows - 1) / rows;
   const long long mine = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   auto copy = [&](float* dst, const float* src, int floats) {
@@ -398,6 +325,7 @@ seg_agg_fused_kernel(const float* __restrict__ values, const int* __restrict__ i
     if (st < mine) stage(st, st);
     ptx::cp_async_commit();
   }
+  if (TIER == kGlobal) grid_barrier(bar);  // every block's share of the output filled
   __syncthreads();  // bounds and slots initialised
 
   const unsigned long long all = s_count >= 64 ? ~0ull : ((1ull << s_count) - 1ull);
@@ -417,13 +345,16 @@ seg_agg_fused_kernel(const float* __restrict__ values, const int* __restrict__ i
     for (int r0 = tid; r0 - tid % 32 < nr; r0 += kFusedThreads * kRowsPerThread) {
       int g[kRowsPerThread];
       unsigned long long pass[kRowsPerThread];
+      float w[kRowsPerThread];  // the row's mask (kernel A)
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) {
         const int r = r0 + i * kFusedThreads;
         g[i] = r < nr ? sid[r] : -1;
         pass[i] = g[i] >= 0 && g[i] < num_groups ? all : 0ull;
+        w[i] = MASK == kRanges ? 1.0f : sp[min(r, nr - 1)];
+        if (MASK == kSelect) pass[i] &= w[i] > 0.5f ? all : 0ull;
       }
-      for (int j = 0; j < p; ++j) {
+      for (int j = 0; MASK == kRanges && j < p; ++j) {
         float x[kRowsPerThread];
 #pragma unroll
         for (int i = 0; i < kRowsPerThread; ++i)
@@ -444,7 +375,7 @@ seg_agg_fused_kernel(const float* __restrict__ values, const int* __restrict__ i
           for (int i = 0; i < kRowsPerThread; ++i) pass[i] &= hit[i] ? ~0ull : miss;
         }
       }
-      if (TIER == kPerWarp) {
+      if constexpr (TIER == kPerWarp) {
         // the 4 rows together, each row's passing signatures one per call
         float* wslots = slots + (tid / 32) * nslots;
         const float* v[kRowsPerThread];
@@ -477,10 +408,11 @@ seg_agg_fused_kernel(const float* __restrict__ values, const int* __restrict__ i
           for (int i = 0; i < kRowsPerThread; ++i) {
             if ((pass[i] >> s) & 1ull) {
               const Idx base = ((Idx)s * num_groups + g[i]) * m;
-              add_row<OP, TIER>(TIER == kGlobal      ? out + base
-                                : TIER == kPerThread ? slots + base * kFusedThreads + tid
-                                                     : slots + base,
-                                sv + (r0 + i * kFusedThreads) * m, m);
+              add_row<OP, TIER, MASK == kMultiply>(
+                  TIER == kGlobal      ? out + base
+                  : TIER == kPerThread ? slots + base * kFusedThreads + tid
+                                       : slots + base,
+                  sv + (r0 + i * kFusedThreads) * m, m, w[i]);
             }
           }
         }
@@ -488,7 +420,14 @@ seg_agg_fused_kernel(const float* __restrict__ values, const int* __restrict__ i
     }
   }
   ptx::cp_async_wait<0>();
-  if (TIER == kGlobal) return;
+  if (TIER == kGlobal) {
+    if (OP == kOpSum) return;
+    grid_barrier(bar);  // every block's atomics are done: MIN/MAX keys decoded
+    for (long long i = (long long)blockIdx.x * kFusedThreads + tid; i < nslots;
+         i += (long long)gridDim.x * kFusedThreads)
+      out[i] = finish<OP>(__ldcg(out + i));
+    return;
+  }
   __syncthreads();
 
   // this block's partial, its copies combined in a fixed order: a slot's
@@ -544,15 +483,6 @@ seg_agg_fused_kernel(const float* __restrict__ values, const int* __restrict__ i
   }
 }
 
-struct Plan {
-  int tile_groups;
-  int tiles;
-  bool use_smem;
-  long long rows_per_block;
-  long long blocks;
-  size_t smem_bytes;
-};
-
 int sm_count() {
   static int count = 0;
   if (count == 0) {
@@ -564,71 +494,44 @@ int sm_count() {
   return count;
 }
 
-// Group tiles and row blocks for `groups` (virtual) groups of M slots each.
-Plan make_plan(long long n, long long groups, int m, size_t fixed_smem) {
-  Plan pl;
-  long long tile = kSmemSlots / m;
-  if (tile < 1) tile = 1;
-  long long tiles = (groups + tile - 1) / tile;
-  pl.use_smem = tiles <= kMaxTiles;
-  if (pl.use_smem) {
-    pl.tiles = (int)tiles;
-    pl.tile_groups = (int)((groups + tiles - 1) / tiles);
-  } else {
-    pl.tiles = 1;
-    pl.tile_groups = (int)groups;
+// Calls f.template run<OP, TIER, MASK>() for a runtime (op, tier, mask): the
+// instances that exist (the multiply contract only for SUM and not with
+// per-warp slots, which kernel A's plan never picks); any other
+// combination is refused.
+template <int OP, int TIER, typename F>
+cudaError_t dispatch_mask(int mask, F& f) {
+  if (mask == kRanges) return f.template run<OP, TIER, kRanges>();
+  if (mask == kSelect) return f.template run<OP, TIER, kSelect>();
+  if constexpr (OP == kOpSum && TIER != kPerWarp) {
+    if (mask == kMultiply) return f.template run<OP, TIER, kMultiply>();
   }
-  const long long slots = pl.use_smem ? (long long)pl.tile_groups * m : 0;
-  // about one wave of blocks at full occupancy, never fewer rows per block
-  // than the block's partial has slots to initialise and merge
-  long long rpb = (n + sm_count() * 8LL - 1) / (sm_count() * 8LL);
-  if (rpb < kMinRowsPerBlock) rpb = kMinRowsPerBlock;
-  if (rpb < slots) rpb = slots;
-  rpb = (rpb + kThreads - 1) / kThreads * kThreads;
-  pl.rows_per_block = rpb;
-  pl.blocks = (n + rpb - 1) / rpb;
-  pl.smem_bytes = fixed_smem + (size_t)slots * sizeof(float);
-  return pl;
+  return cudaErrorInvalidValue;
 }
 
-int grid_for(long long total) {
-  long long b = (total + kThreads - 1) / kThreads;
-  return (int)(b < 4096 ? b : 4096);
-}
-
-void fill_output(float* out, long long total, int op, cudaStream_t stream) {
-  if (total > 0) {
-    fill_kernel<<<grid_for(total), kThreads, 0, stream>>>(out, total,
-                                                          identity_bits(op));
+template <int OP, typename F>
+cudaError_t dispatch_tier(int tier, int mask, F& f) {
+  switch (tier) {
+    case kPerThread: return dispatch_mask<OP, kPerThread>(mask, f);
+    case kPerWarp: return dispatch_mask<OP, kPerWarp>(mask, f);
+    case kPerBlock: return dispatch_mask<OP, kPerBlock>(mask, f);
+    case kGlobal: return dispatch_mask<OP, kGlobal>(mask, f);
   }
+  return cudaErrorInvalidValue;
 }
 
-void decode_output(float* out, long long total, int op, cudaStream_t stream) {
-  if (total > 0 && op != kOpSum) {
-    decode_kernel<<<grid_for(total), kThreads, 0, stream>>>(
-        out, total, op == kOpMin ? kNanMin : kNanMax);
+template <typename F>
+cudaError_t dispatch(int op, int tier, int mask, F& f) {
+  switch (op) {
+    case kOpSum: return dispatch_tier<kOpSum>(tier, mask, f);
+    case kOpMin: return dispatch_tier<kOpMin>(tier, mask, f);
+    case kOpMax: return dispatch_tier<kOpMax>(tier, mask, f);
   }
+  return cudaErrorInvalidValue;
 }
 
-template <int OP, bool SELECT>
-cudaError_t launch_a(const float* values, const int* ids, const float* mask,
-                     float* out, long long n, int m, int num_groups,
-                     cudaStream_t stream) {
-  Plan pl = make_plan(n, num_groups, m, 0);
-  static std::atomic<unsigned long long> smem_ready{0};
-  cudaError_t err = ptx::allow_dynamic_smem(
-      seg_agg_kernel<OP, SELECT>, (int)(kSmemSlots * sizeof(float)), smem_ready);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)pl.blocks, (unsigned)pl.tiles);
-  seg_agg_kernel<OP, SELECT><<<grid, kThreads, pl.smem_bytes, stream>>>(
-      values, ids, mask, out, n, m, num_groups, pl.tile_groups,
-      pl.rows_per_block, pl.use_smem);
-  return cudaSuccess;
-}
-
-// Kernel B's launch at one shape: its slot tier, row tile, shared memory,
-// grid and workspace.
-struct FusedPlan {
+// A launch at one shape: its slot tier, row tile, shared memory, grid and
+// workspace.
+struct TiledPlan {
   int tier;
   int rows;
   size_t smem;
@@ -636,31 +539,38 @@ struct FusedPlan {
   long long workspace;  // floats of block partials (0 in the global tier)
 };
 
-template <int OP, int TIER>
-cudaError_t fused_grid(size_t smem, long long tiles, int* grid) {
-  static std::atomic<unsigned long long> smem_ready{0};
-  cudaError_t err = ptx::allow_dynamic_smem(seg_agg_fused_kernel<OP, TIER>, (int)kSmemLimit,
-                                            smem_ready);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, seg_agg_fused_kernel<OP, TIER>, kFusedThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // at most 4 blocks per SM: enough tiles in flight, few partials to combine
-  const long long cap = (long long)(per_sm < 4 ? per_sm : 4) * sm_count();
-  *grid = (int)(tiles < 1 ? 1 : (tiles < cap ? tiles : cap));
-  return cudaSuccess;
-}
+// The grid of an instance: as many blocks as fit on the SMs at once (a
+// cooperative launch needs them co-resident), at most 4 per SM, at most
+// one per row tile.
+struct GridOf {
+  size_t smem;
+  long long tiles;
+  int* grid;
 
-template <int OP>
-cudaError_t plan_b(long long n, int m, int p, int k, int s_count, int num_groups,
-                   FusedPlan* pl) {
+  template <int OP, int TIER, int MASK>
+  cudaError_t run() {
+    static std::atomic<unsigned long long> smem_ready{0};
+    auto kernel = seg_agg_tiled_kernel<OP, TIER, MASK>;
+    cudaError_t err = ptx::allow_dynamic_smem(kernel, (int)kSmemLimit, smem_ready);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFusedThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    // at most 4 blocks per SM: enough tiles in flight, few partials to combine
+    const long long cap = (long long)(per_sm < 4 ? per_sm : 4) * sm_count();
+    *grid = (int)(tiles < 1 ? 1 : (tiles < cap ? tiles : cap));
+    return cudaSuccess;
+  }
+};
+
+cudaError_t plan(long long n, int m, int p, int k, int s_count, int num_groups, int op,
+                 int mask, TiledPlan* pl) {
   // row tiles of 1024 rows (each thread 4) where they fit in 48 KB, else 256
   const int cols = 1 + m + p;
   const int rows = cols <= 12 ? 1024 : 256;
-  const size_t fixed = sizeof(float) * (((size_t)s_count * p * k * 2 + 3) / 4 * 4 +
-                                        (size_t)kStages * rows * cols);
+  const size_t nb = mask == kRanges ? (size_t)s_count * p * k * 2 : 0;
+  const size_t fixed = sizeof(float) * ((nb + 3) / 4 * 4 + (size_t)kStages * rows * cols);
   if (fixed > kSmemLimit) return cudaErrorInvalidValue;
   const size_t avail = kSmemLimit - fixed;
   const long long slots = (long long)s_count * num_groups * m;
@@ -684,67 +594,48 @@ cudaError_t plan_b(long long n, int m, int p, int k, int s_count, int num_groups
     pl->smem = fixed;
   }
   pl->rows = rows;
-  const long long tiles = (n + rows - 1) / rows;
-  cudaError_t err;
-  switch (pl->tier) {
-    case kPerThread: err = fused_grid<OP, kPerThread>(pl->smem, tiles, &pl->grid); break;
-    case kPerWarp: err = fused_grid<OP, kPerWarp>(pl->smem, tiles, &pl->grid); break;
-    case kPerBlock: err = fused_grid<OP, kPerBlock>(pl->smem, tiles, &pl->grid); break;
-    default: err = fused_grid<OP, kGlobal>(pl->smem, tiles, &pl->grid); break;
-  }
+  GridOf grid{pl->smem, (n + rows - 1) / rows, &pl->grid};
+  const cudaError_t err = dispatch(op, pl->tier, mask, grid);
   pl->workspace = pl->tier == kGlobal ? 0 : (long long)pl->grid * slots;
   return err;
 }
 
-cudaError_t plan_any(long long n, int m, int p, int k, int s_count, int num_groups, int op,
-                     FusedPlan* pl) {
-  if (op == kOpSum) return plan_b<kOpSum>(n, m, p, k, s_count, num_groups, pl);
-  if (op == kOpMin) return plan_b<kOpMin>(n, m, p, k, s_count, num_groups, pl);
-  if (op == kOpMax) return plan_b<kOpMax>(n, m, p, k, s_count, num_groups, pl);
-  return cudaErrorInvalidValue;
+// One cooperative launch of the planned instance.
+struct Launch {
+  const float* values;
+  const int* ids;
+  const float* pred;
+  const float* bounds;
+  float* out;
+  float* part;
+  unsigned int* bar;
+  long long n;
+  int m, p, k, s_count, num_groups;
+  const TiledPlan* pl;
+  cudaStream_t stream;
+
+  template <int OP, int TIER, int MASK>
+  cudaError_t run() {
+    int rows = pl->rows;
+    void* args[] = {&values, &ids, &pred, &bounds, &out, &part, &bar, &n, &m, &p, &k,
+                    &s_count, &num_groups, &rows};
+    return cudaLaunchCooperativeKernel((const void*)seg_agg_tiled_kernel<OP, TIER, MASK>,
+                                       dim3(pl->grid), dim3(kFusedThreads), args, pl->smem,
+                                       stream);
+  }
+};
+
+cudaError_t plan_and_launch(Launch& l, int op, int mask, TiledPlan* pl) {
+  if ((long long)l.s_count * l.num_groups * l.m <= 0) return cudaSuccess;
+  cudaError_t err = plan(l.n, l.m, l.p, l.k, l.s_count, l.num_groups, op, mask, pl);
+  if (err != cudaSuccess) return err;
+  l.pl = pl;
+  err = dispatch(op, pl->tier, mask, l);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int OP, int TIER>
-cudaError_t launch_b(const float* values, const int* ids, const float* pred,
-                     const float* bounds, float* out, float* part, unsigned int* bar,
-                     long long n, int m, int p, int k, int s_count, int num_groups,
-                     const FusedPlan& pl, cudaStream_t stream) {
-  int rows = pl.rows;
-  if (TIER == kGlobal) {  // global atomics: the output filled before, decoded after
-    const long long total = (long long)s_count * num_groups * m;
-    fill_output(out, total, OP, stream);
-    seg_agg_fused_kernel<OP, TIER><<<pl.grid, kFusedThreads, pl.smem, stream>>>(
-        values, ids, pred, bounds, out, part, bar, n, m, p, k, s_count, num_groups, rows);
-    decode_output(out, total, OP, stream);
-    return cudaGetLastError();
-  }
-  void* args[] = {&values, &ids, &pred, &bounds, &out, &part, &bar, &n, &m, &p, &k,
-                  &s_count, &num_groups, &rows};
-  return cudaLaunchCooperativeKernel((const void*)seg_agg_fused_kernel<OP, TIER>,
-                                     dim3(pl.grid), dim3(kFusedThreads), args, pl.smem,
-                                     stream);
-}
-
-template <int OP>
-cudaError_t launch_b_op(const float* values, const int* ids, const float* pred,
-                        const float* bounds, float* out, float* part, unsigned int* bar,
-                        long long n, int m, int p, int k, int s_count, int num_groups,
-                        const FusedPlan& pl, cudaStream_t stream) {
-  switch (pl.tier) {
-    case kPerThread:
-      return launch_b<OP, kPerThread>(values, ids, pred, bounds, out, part, bar, n, m, p, k,
-                                      s_count, num_groups, pl, stream);
-    case kPerWarp:
-      return launch_b<OP, kPerWarp>(values, ids, pred, bounds, out, part, bar, n, m, p, k,
-                                    s_count, num_groups, pl, stream);
-    case kPerBlock:
-      return launch_b<OP, kPerBlock>(values, ids, pred, bounds, out, part, bar, n, m, p, k,
-                                     s_count, num_groups, pl, stream);
-    default:
-      return launch_b<OP, kGlobal>(values, ids, pred, bounds, out, part, bar, n, m, p, k,
-                                   s_count, num_groups, pl, stream);
-  }
-}
+// kernel A's mask source: the multiply contract is SUM's (MIN/MAX select)
+int mask_of(int op, int select) { return op == kOpSum && !select ? kMultiply : kSelect; }
 
 }  // namespace
 
@@ -754,32 +645,29 @@ const char* seg_agg_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// op: 0 sum, 1 min, 2 max.  select: 1 for the select contract, 0 for the
-// multiply contract (SUM only; MIN/MAX always select).
-int seg_agg_launch(const float* values, const int* ids, const float* mask,
-                   float* out, long long n, int m, int num_groups, int op,
-                   int select, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const long long total = (long long)num_groups * m;
-  fill_output(out, total, op, stream);
-  cudaError_t err = cudaSuccess;
-  if (n > 0 && total > 0) {
-    if (op == kOpSum) {
-      err = select ? launch_a<kOpSum, true>(values, ids, mask, out, n, m,
-                                            num_groups, stream)
-                   : launch_a<kOpSum, false>(values, ids, mask, out, n, m,
-                                             num_groups, stream);
-    } else if (op == kOpMin) {
-      err = launch_a<kOpMin, true>(values, ids, mask, out, n, m, num_groups,
-                                   stream);
-    } else {
-      err = launch_a<kOpMax, true>(values, ids, mask, out, n, m, num_groups,
-                                   stream);
-    }
-  }
-  if (err != cudaSuccess) return (int)err;
-  decode_output(out, total, op, stream);
-  return (int)cudaGetLastError();
+// Kernel A's plan at this shape: returns its slot tier (0 per thread, 2 per
+// block, 3 global atomics; < 0: -(CUDA error)) and writes the floats of
+// workspace a launch needs (its block partials).
+int seg_agg_plan(long long n, int m, int num_groups, int op, int select,
+                 long long* workspace) {
+  TiledPlan pl;
+  const cudaError_t err = plan(n, m, 1, 0, 1, num_groups, op, mask_of(op, select), &pl);
+  if (err != cudaSuccess) return -(int)err;
+  *workspace = pl.workspace;
+  return pl.tier;
+}
+
+// Kernel A: values (N, M), ids (N,), mask (N,) -> out (G, M).  op: 0 sum,
+// 1 min, 2 max.  select: 1 for the select contract, 0 for the multiply
+// contract (SUM only; MIN/MAX always select).  values, ids and mask start
+// on 16-byte boundaries; work and bar as for seg_agg_fused_launch.
+int seg_agg_launch(const float* values, const int* ids, const float* mask, float* out,
+                   long long n, int m, int num_groups, int op, int select,
+                   void* stream_ptr, float* work, unsigned int* bar) {
+  Launch l{values, ids, mask, nullptr, out, work, bar, n, m, 1, 0, 1, num_groups, nullptr,
+           (cudaStream_t)stream_ptr};
+  TiledPlan pl;
+  return (int)plan_and_launch(l, op, mask_of(op, select), &pl);
 }
 
 // Kernel B's plan at this shape: returns its slot tier (0 per thread, 1 per
@@ -787,8 +675,8 @@ int seg_agg_launch(const float* values, const int* ids, const float* mask,
 // floats of workspace a launch needs (its block partials).
 int seg_agg_fused_plan(long long n, int m, int p, int k, int s_count, int num_groups,
                        int op, long long* workspace) {
-  FusedPlan pl;
-  const cudaError_t err = plan_any(n, m, p, k, s_count, num_groups, op, &pl);
+  TiledPlan pl;
+  const cudaError_t err = plan(n, m, p, k, s_count, num_groups, op, kRanges, &pl);
   if (err != cudaSuccess) return -(int)err;
   *workspace = pl.workspace;
   return pl.tier;
@@ -803,23 +691,10 @@ int seg_agg_fused_launch(const float* values, const int* ids,
                          long long n, int m, int p, int k, int s_count,
                          int num_groups, int op, void* stream_ptr, float* work,
                          unsigned int* bar) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if ((long long)s_count * num_groups * m <= 0) return (int)cudaSuccess;
-  FusedPlan pl;
-  cudaError_t err = plan_any(n, m, p, k, s_count, num_groups, op, &pl);
-  if (err != cudaSuccess) return (int)err;
-  if (op == kOpSum) {
-    err = launch_b_op<kOpSum>(values, ids, pred, bounds, out, work, bar, n, m, p, k, s_count,
-                              num_groups, pl, stream);
-  } else if (op == kOpMin) {
-    err = launch_b_op<kOpMin>(values, ids, pred, bounds, out, work, bar, n, m, p, k, s_count,
-                              num_groups, pl, stream);
-  } else {
-    err = launch_b_op<kOpMax>(values, ids, pred, bounds, out, work, bar, n, m, p, k, s_count,
-                              num_groups, pl, stream);
-  }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  Launch l{values, ids, pred, bounds, out, work, bar, n, m, p, k, s_count, num_groups,
+           nullptr, (cudaStream_t)stream_ptr};
+  TiledPlan pl;
+  return (int)plan_and_launch(l, op, kRanges, &pl);
 }
 
 }  // extern "C"

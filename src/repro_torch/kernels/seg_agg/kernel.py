@@ -9,18 +9,22 @@ Two kernels, each replacing one Pallas TPU kernel of the JAX package
 * ``seg_agg_fused_cuda`` (kernel B) <- ``_seg_agg_fused_kernel``: the row
   mask is built inside the kernel from predicate columns (N, P) f32 and
   range bounds (S, P, K, 2) f32, for S signatures in one pass over the rows
-  -> (S, G, M).  Its slots are privatised by their count S*G*M
-  (``fused_tier``), the first tier that leaves two blocks per SM: per
-  thread, or per warp for several signatures, both updated without
-  atomics, which makes SUM bit-reproducible; then per block with
-  shared-memory atomics, and past what a block holds global atomics.
-  Below the global tier the blocks' partials go to a workspace this module
-  owns and are combined in a fixed order inside the same launch.
+  -> (S, G, M).
+
+Both are one template: kernel A is kernel B with one signature whose mask
+column is given.  Each call is one cooperative launch.  Its slots are
+privatised by their count S*G*M (``fused_tier``, ``masked_tier``), the
+first tier that leaves two blocks per SM: per thread, or per warp for
+several signatures, both updated without atomics, which makes SUM
+bit-reproducible; then per block with shared-memory atomics, and past what
+a block holds global atomics.  Below the global tier the blocks' partials
+go to a workspace this module owns and are combined in a fixed order
+inside the same launch.
 
 Both are bound by the bytes they read (see the note in the source).  The
-wrappers check device, dtype, shape, contiguity and (kernel B) 16-byte
-alignment, allocate the output, launch on the current stream and raise on
-a launch error; each counts every kernel launch, as ``seg_agg`` or
+wrappers check device, dtype, shape, contiguity and 16-byte alignment,
+allocate the output, launch on the current stream and raise on a launch
+error; each counts every kernel launch, as ``seg_agg`` or
 ``seg_agg_fused``, in ``binding.launch_counts``.  Their plain PyTorch
 versions are in ``ref.py``.
 """
@@ -38,11 +42,12 @@ from ..build import load
 OPS = {"sum": 0, "min": 1, "max": 2}
 MAX_SIGNATURES = 64  # one launch evaluates at most this many signatures
 MAX_BOUNDS_BYTES = 32 * 1024  # (S, P, K, 2) bounds staged in shared memory
-# kernel B's slot tiers (``fused_tier``); "thread" and "warp" are bit-reproducible
+# the slot tiers (``fused_tier``, ``masked_tier``; kernel A takes no per-warp
+# slots); "thread" and "warp" are bit-reproducible
 TIERS = ("thread", "warp", "block", "global")
 DETERMINISTIC = ("thread", "warp")
 
-# (device index, stream) -> (barrier counters, workspace): kernel B's
+# (device index, stream) -> (barrier counters, workspace): both kernels'
 # scratch, grown on demand.  Each launch leaves the counters at 0 again, and
 # launches on one stream run in order, so a stream's launches share one.
 _SCRATCH_LOCK = make_lock("seg_agg._SCRATCH_LOCK")
@@ -53,8 +58,10 @@ def _lib() -> ctypes.CDLL:
     lib = load("seg_agg")
     if lib.seg_agg_launch.argtypes is None:  # first use: declare the C ABI
         lib.seg_agg_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _LL, _INT, _INT,
-                                       _INT, _INT, _PTR]
+                                       _INT, _INT, _PTR, _PTR, _PTR]
         lib.seg_agg_launch.restype = _INT
+        lib.seg_agg_plan.argtypes = [_LL, _INT, _INT, _INT, _INT, ctypes.POINTER(_LL)]
+        lib.seg_agg_plan.restype = _INT
         lib.seg_agg_fused_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _LL,
                                              _INT, _INT, _INT, _INT, _INT,
                                              _INT, _PTR, _PTR, _PTR]
@@ -98,24 +105,48 @@ def seg_agg_cuda(values, ids, mask, num_groups: int, op: str = "sum",
                          f"mask {mask.shape[0]}")
     if num_groups < 1 or num_groups >= 2 ** 31:
         raise ValueError(f"num_groups out of range: {num_groups}")
+    for name, t in (("values", values), ("ids", ids), ("mask", mask)):
+        check_aligned(name, t)
     out = torch.empty((num_groups, m), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        _, n_work = _masked_plan(lib, n, m, num_groups, code, select)
+        bar, work = _scratch(dev, stream, n_work)
         rc = lib.seg_agg_launch(values.data_ptr(), ids.data_ptr(),
                                 mask.data_ptr(), out.data_ptr(), n, m,
-                                num_groups, code, int(bool(select)), stream)
+                                num_groups, code, int(bool(select)), stream,
+                                work.data_ptr(), bar.data_ptr())
     _raise_on(lib, rc, "seg_agg")
     count_launch("seg_agg")
     return out
 
 
+def _check_plan(lib, tier: int, work, what: str) -> tuple[int, int]:
+    if tier < 0:
+        _raise_on(lib, -tier, what)
+    return tier, work.value
+
+
+def _masked_plan(lib, n: int, m: int, g: int, code: int, select: bool) -> tuple[int, int]:
+    work = _LL(0)
+    return _check_plan(lib, lib.seg_agg_plan(n, m, g, code, int(bool(select)),
+                                             ctypes.byref(work)), work, "seg_agg plan")
+
+
 def _plan(lib, n: int, m: int, p: int, k: int, s: int, g: int, code: int) -> tuple[int, int]:
     work = _LL(0)
-    tier = lib.seg_agg_fused_plan(n, m, p, k, s, g, code, ctypes.byref(work))
-    if tier < 0:
-        _raise_on(lib, -tier, "seg_agg_fused plan")
-    return tier, work.value
+    return _check_plan(lib, lib.seg_agg_fused_plan(n, m, p, k, s, g, code, ctypes.byref(work)),
+                       work, "seg_agg_fused plan")
+
+
+def masked_tier(n: int, m: int, num_groups: int, op: str = "sum",
+                select: bool = True) -> str:
+    """Kernel A's slot tier for one launch at this shape (on the current
+    CUDA device): one of ``TIERS`` other than "warp"."""
+    return TIERS[_masked_plan(_lib(), n, m, num_groups, _op_code(op), select)[0]]
 
 
 def fused_tier(n: int, m: int, p: int, k: int, s: int, num_groups: int,

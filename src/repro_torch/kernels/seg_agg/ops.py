@@ -67,7 +67,7 @@ def _i32(t):
 
 def _aligned(t):
     """``t``, copied where its data does not start on a 16-byte boundary:
-    kernel B stages its row columns with 16-byte copies."""
+    the kernels stage their row columns with 16-byte copies."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -75,8 +75,8 @@ def seg_agg(values, ids, mask, num_groups: int, op: str = "sum"):
     """Grouped aggregation: (N, M) values + (N,) ids -> (num_groups, M)."""
     _record_launch()
     if _on_cuda(values, ids, mask):
-        return kernel.seg_agg_cuda(_f32(values), _i32(ids), _f32(mask),
-                                   num_groups, op, select=False)
+        return kernel.seg_agg_cuda(_aligned(_f32(values)), _aligned(_i32(ids)),
+                                   _aligned(_f32(mask)), num_groups, op, select=False)
     return ref.seg_agg_ref(values, ids, mask, num_groups, op)
 
 
@@ -88,8 +88,8 @@ def seg_agg_masked(values, ids, mask, num_groups: int, op: str = "sum"):
     evaluation but the aggregation stays one device launch."""
     _record_launch()
     if _on_cuda(values, ids, mask):
-        return kernel.seg_agg_cuda(_f32(values), _i32(ids), _f32(mask),
-                                   num_groups, op, select=True)
+        return kernel.seg_agg_cuda(_aligned(_f32(values)), _aligned(_i32(ids)),
+                                   _aligned(_f32(mask)), num_groups, op, select=True)
     return ref.seg_agg_masked_ref(values, ids, mask, num_groups, op)
 
 

@@ -5,7 +5,9 @@ mode, over the shape sweeps of ``tests/test_kernels.py``.
 
 Tolerances are those of ``tests/test_kernels.py``: float32 2e-3 (blockwise
 online softmax against one softmax), bfloat16 5e-2.  Against the jnp
-oracle, whose arithmetic the port repeats, float32 agrees to 1e-5.
+oracle, whose arithmetic the port repeats, float32 agrees to 1e-5.  The
+sweeps cover every head dim the CUDA kernels are built for (16, 32, 64,
+112, 128, 192 and 256).
 
 The CUDA kernels' own arithmetic, rehearsed in plain PyTorch
 (``flash_tiled_ref``: 64-key tiles, bf16 products in f32, the scale after
@@ -40,8 +42,12 @@ T = torch.from_numpy
 ATTN_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (4e-3, 5e-4)}  # (rtol, atol)
 
 
+# the head dims the registry uses past 32, 64 and 128 (ATTN_HEAD_DIMS): every
+# reduced config's 16, kimi-k2's and zamba2's 112, nemotron-4-340b's 192 and
+# gemma-2b's 256, at the Pallas kernels' tile edges
 @pytest.mark.parametrize("b,h,hkv,s,dh", [
     (2, 4, 2, 256, 64), (1, 8, 1, 128, 32), (1, 4, 4, 100, 64), (2, 2, 2, 64, 128),
+    (2, 4, 2, 65, 16), (1, 8, 2, 100, 112), (1, 6, 2, 64, 192), (1, 8, 1, 70, 256),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_jax(b, h, hkv, s, dh, causal):
@@ -78,6 +84,8 @@ def test_flash_attention_bf16_matches_jax():
 
 @pytest.mark.parametrize("b,h,hkv,s,dh,tk", [
     (2, 8, 2, 512, 64, 128), (1, 4, 1, 300, 128, 128), (3, 4, 4, 128, 32, 64),
+    (2, 4, 2, 128, 16, 64), (1, 8, 1, 200, 112, 128), (2, 6, 2, 128, 192, 64),
+    (1, 8, 1, 300, 256, 128),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_matches_jax(b, h, hkv, s, dh, tk, dtype):
@@ -176,6 +184,26 @@ def test_flash_tiled_ref_matches_plain_and_pallas(s, g, dtype):
     _attn_close(got.float(), pallas, dtype)
 
 
+@pytest.mark.parametrize("s", [1, 65, 129])
+@pytest.mark.parametrize("dh", [16, 32, 112, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tiled_ref_at_every_head_dim(s, dh, dtype):
+    """The kernel's arithmetic at each head dim it is built for besides 64
+    and 128 (the bf16 kernel's column groups at 192 and 256 change which
+    warp computes a column, not its arithmetic), against the plain version
+    and the Pallas kernel, causal and not, GQA group 3."""
+    b, hkv, g = 1, 2, 3
+    q, k, v = _inputs(s + dh, dtype, (b, hkv * g, s, dh), (b, hkv, s, dh), (b, hkv, s, dh))
+    exact = [t.float() for t in (q, k, v)]
+    for causal in (True, False):
+        got = fref.flash_tiled_ref(q, k, v, causal=causal)
+        assert got.dtype == dtype and got.shape == q.shape
+        _attn_close(got.float(), fref.mha_ref(*exact, causal=causal), dtype)
+        pallas = flash_attention_pallas(*(jnp.asarray(t.numpy()) for t in exact),
+                                        causal=causal, tq=64, tk=64, interpret=True)
+        _attn_close(got.float(), pallas, dtype)
+
+
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 512])
 @pytest.mark.parametrize("g", [1, 3, 4])
 @pytest.mark.parametrize("causal", [True, False])
@@ -240,6 +268,25 @@ def test_decode_refs_match_plain_and_pallas(s, g, ref, dtype):
     _attn_close(got.float(), pallas, dtype)
 
 
+@pytest.mark.parametrize("dh", [16, 32, 112, 192, 256])
+@pytest.mark.parametrize("ref,dtype", DECODE_CASES)
+def test_decode_refs_at_every_head_dim(dh, ref, dtype):
+    """Each decode instance's arithmetic at each head dim it is built for
+    besides 64 and 128 (the f32 partials hold Dh + 2 floats per row),
+    pos at the chunk edges, against the plain version and the Pallas
+    kernel."""
+    b, hkv, g, s, chunk = 5, 2, 3, 100, dkernel.CHUNK
+    q, k, v = _inputs(dh, dtype, (b, hkv * g, dh), (b, hkv, s, dh), (b, hkv, s, dh))
+    pos = _edge_pos(s, chunk, b)
+    exact = [t.float() for t in (q, k, v)]
+    got = DECODE_REFS[ref](q, k, v, pos, chunk)
+    assert got.dtype == dtype and got.shape == q.shape
+    _attn_close(got.float(), dref.decode_attention_ref(*exact, pos), dtype)
+    pallas = decode_attention_pallas(*(jnp.asarray(t.numpy()) for t in exact),
+                                     jnp.asarray(pos.numpy()), tk=chunk, interpret=True)
+    _attn_close(got.float(), pallas, dtype)
+
+
 @pytest.mark.parametrize("chunk", [16, 32, 64])
 @pytest.mark.parametrize("g", [1, 3, 4])
 @pytest.mark.parametrize("ref,dtype", DECODE_CASES)
@@ -285,6 +332,24 @@ def test_decode_refs_ignore_slots_past_pos(ref, dtype):
         k2[i, :, p:], v2[i, :, p:] = 999.0, float("nan")
     assert torch.equal(DECODE_REFS[ref](q, k2, v2, pos, 32), got)
     assert not got[0].any() and torch.isfinite(got).all()
+
+
+def test_head_dims_agree_with_the_sources():
+    """The wrappers' head dims, the build's units and the HEAD_DIMS lists of
+    both CUDA sources are one set; any other dim is refused before a launch
+    (on a CPU tensor the device check speaks first, so a CUDA-looking
+    refusal is checked through the list)."""
+    import re
+
+    assert fkernel.HEAD_DIMS == dkernel.HEAD_DIMS == build.ATTN_HEAD_DIMS \
+        == (16, 32, 64, 112, 128, 192, 256)
+    for name in ("flash_attn", "decode_attn"):
+        text = build.SOURCES[name][0].read_text()
+        listed = re.search(r"#define HEAD_DIMS\(X\) (.*)", text).group(1)
+        assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", listed)) == build.ATTN_HEAD_DIMS
+        assert [f for _, f in build.units(name)] == [()] + [
+            (f"-DHEAD_DIM={dh}",) for dh in build.ATTN_HEAD_DIMS]
+    assert 96 not in fkernel.HEAD_DIMS and 320 not in dkernel.HEAD_DIMS
 
 
 def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):

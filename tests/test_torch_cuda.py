@@ -108,6 +108,70 @@ def _fused_inputs(dev, n, m, g, p, s, seed):
     return v, ids, pred, b
 
 
+@pytest.mark.parametrize("g,tier", [(5, "thread"), (37, "block"), (200_000, "global")])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_masked_kernel_matches_plain_in_every_tier(cuda_device, g, tier, op):
+    """Kernel A in each slot tier it takes (M 3: per thread up to G 24, per
+    block up to ~56 k slots, global atomics past them), under both mask
+    contracts, with NaN values (in masked-out rows too: the multiply
+    contract's 0 * NaN poisons the group, select keeps it out), NaN and
+    fractional masks, an empty mask, and ids outside [0, G) (they reach no
+    group: the plain version, which takes ids in range only, gets the rest
+    of the rows)."""
+    n, m = 30_000, 3
+    rng = np.random.default_rng(g)
+    vals = rng.normal(size=(n, m)).astype(np.float32)
+    vals[rng.random((n, m)) < 0.01] = np.nan
+    ids = rng.integers(0, g, size=n).astype(np.int32)
+    mask = (rng.random(n) > 0.3).astype(np.float32)
+    mask[::13] = 0.5  # not > 0.5: outside the select contract
+    mask[1::13] = np.nan
+    mask[2::13] = 0.75
+    v, i, mk = (T(a).to(cuda_device) for a in (vals, ids, mask))
+    assert tkernel.masked_tier(n, m, g, op) == tier
+    reset_launch_counts()
+    for select, plain in ((True, tref.seg_agg_masked_ref), (False, tref.seg_agg_ref)):
+        want = plain(v, i, mk, g, op)
+        got = tkernel.seg_agg_cuda(v, i, mk, g, op, select=select)
+        np.testing.assert_array_equal(np.isnan(got.cpu().numpy()), np.isnan(want.cpu().numpy()))
+        _close(got, want)
+    empty = torch.zeros_like(mk)
+    _close(tkernel.seg_agg_cuda(v, i, empty, g, op), tref.seg_agg_masked_ref(v, i, empty, g, op))
+    assert launch_counts()["seg_agg"] == 3  # one launch per call
+    stray = i.clone()
+    stray[::97], stray[1::97] = -1, g
+    keep = (stray >= 0) & (stray < g)
+    _close(tkernel.seg_agg_cuda(v, stray, mk, g, op),
+           tref.seg_agg_masked_ref(v[keep], i[keep], mk[keep], g, op))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m,g,tier", [(2, 5, "thread"), (2, 40, "thread"), (1, 1, "thread"),
+                                      (2, 84, "block"), (2, 6250, "block")])
+@pytest.mark.parametrize("op,select", [("sum", True), ("sum", False), ("min", True),
+                                       ("max", True)])
+def test_masked_kernel_repeats_bit_for_bit(cuda_device, m, g, tier, op, select):
+    """The host-mask request's shape (G 5) and kernel B's per-block shapes
+    (G 84, 6250) at 1M rows: two calls give identical bits where the slots
+    are per thread (SUM in both contracts too); above that slot count (per
+    block, shared atomics) SUM still matches the plain version and MIN/MAX
+    repeat exactly."""
+    gen = torch.Generator(device=cuda_device).manual_seed(g + m)
+    n = 1_000_000
+    v = torch.rand((n, m), generator=gen, device=cuda_device)
+    ids = torch.randint(0, g, (n,), generator=gen, device=cuda_device, dtype=torch.int32)
+    mask = (torch.rand(n, generator=gen, device=cuda_device) > 0.5).float()
+    assert tkernel.masked_tier(n, m, g, op, select) == tier
+    plain = tref.seg_agg_masked_ref if select else tref.seg_agg_ref
+    got = tkernel.seg_agg_cuda(v, ids, mask, g, op, select=select)
+    _close(got, plain(v, ids, mask, g, op))
+    again = tkernel.seg_agg_cuda(v, ids, mask, g, op, select=select)
+    if tier in tkernel.DETERMINISTIC or op != "sum":
+        assert torch.equal(got, again)
+    else:
+        _close(again, got)
+
+
 @pytest.mark.parametrize("m,g,p,s,tier", [
     (3, 5, 1, 6, "warp"), (2, 5, 1, 1, "thread"), (2, 25, 2, 1, "thread"),
     (2, 250, 1, 2, "warp"), (2, 250, 1, 1, "block"), (2, 6250, 1, 1, "block")])
@@ -142,6 +206,8 @@ def test_wrappers_check_their_inputs(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):  # rows 1.. start 8 bytes in
         tkernel.seg_agg_fused_cuda(wide[1:], ids, torch.zeros((8, 1), device=cuda_device),
                                    torch.zeros((1, 1, 1, 2), device=cuda_device), 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        tkernel.seg_agg_cuda(wide[1:], ids, torch.ones(8, device=cuda_device), 2)
 
 
 def test_executor_on_cuda_matches_oracle(cuda_device):
@@ -174,10 +240,18 @@ FLASH_EDGES = [(2, 2 * g, 2, s, 64) for g in (1, 2, 3, 4, 8) for s in (2, 63, 64
     + [(1, 2 * g, 2, s, 128) for g in (2, 8) for s in (65, 129)]
 
 
+# every other head dim the kernels are built for, at the head counts of the
+# configs that use it (reduced configs 16 at 4/2, kimi-k2 112 at 64/8,
+# nemotron-4-340b 192 at 96/8, gemma-2b 256 at 8/1), at tile edges
+HEAD_DIM_CASES = [(1, h, hkv, s, dh) for dh, h, hkv in ((16, 4, 2), (32, 8, 1), (112, 64, 8),
+                                                       (192, 96, 8), (256, 8, 1))
+                  for s in (1, 65, 129)]
+
+
 @pytest.mark.parametrize("b,h,hkv,s,dh", [
-    (2, 4, 2, 256, 64), (1, 8, 1, 128, 128), (1, 4, 4, 100, 64), (2, 2, 2, 64, 128),
-    (3, 12, 4, 77, 64), (8, 12, 4, 77, 64), (1, 3, 1, 1, 64), (1, 6, 2, 1000, 128),
-    *FLASH_EDGES])
+    (2, 4, 2, 256, 64), (1, 8, 1, 128, 32), (1, 8, 1, 128, 128), (1, 4, 4, 100, 64),
+    (2, 2, 2, 64, 128), (3, 12, 4, 77, 64), (8, 12, 4, 77, 64), (1, 3, 1, 1, 64),
+    (1, 6, 2, 1000, 128), *FLASH_EDGES, *HEAD_DIM_CASES])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda_device, b, h, hkv, s, dh, causal, dtype):
@@ -193,7 +267,9 @@ def test_flash_attention_matches_plain(cuda_device, b, h, hkv, s, dh, causal, dt
 
 
 @pytest.mark.parametrize("b,h,hkv,s,dh", [
-    (2, 8, 2, 512, 64), (1, 4, 1, 300, 128), (3, 4, 4, 128, 64), (4, 12, 4, 4096, 64)])
+    (2, 8, 2, 512, 64), (1, 4, 1, 300, 128), (3, 4, 4, 128, 32), (3, 4, 4, 128, 64),
+    (4, 12, 4, 4096, 64), (4, 4, 2, 512, 16), (4, 64, 8, 512, 112), (4, 96, 8, 512, 192),
+    (4, 8, 1, 512, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_plain(cuda_device, b, h, hkv, s, dh, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(b * 1000 + s)
@@ -243,7 +319,7 @@ def test_decode_attention_chunk_edges(cuda_device, g, s, dh, dtype):
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 129])
 @pytest.mark.parametrize("g", [1, 3, 8, 20])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", fkernel.HEAD_DIMS)
 def test_bf16_decode_is_the_prefill_row_bit_for_bit(cuda_device, s, g, dh):
     """A bf16 decode step over a cache of S tokens gives exactly the prefill
     kernel's output for the newest token (the serving engine's decode then
@@ -262,9 +338,9 @@ def test_bf16_decode_is_the_prefill_row_bit_for_bit(cuda_device, s, g, dh):
 
 
 def test_attention_wrappers_refuse_other_head_dims(cuda_device):
-    q = torch.zeros((1, 4, 8, 32), device=cuda_device)
-    kv = torch.zeros((1, 2, 8, 32), device=cuda_device)
-    with pytest.raises(ValueError, match="head dim 32"):
+    q = torch.zeros((1, 4, 8, 320), device=cuda_device)
+    kv = torch.zeros((1, 2, 8, 320), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 320"):
         fkernel.flash_attention_cuda(q, kv, kv)
     qd = torch.zeros((1, 4, 96), device=cuda_device)
     kd = torch.zeros((1, 2, 16, 96), device=cuda_device)
@@ -272,7 +348,8 @@ def test_attention_wrappers_refuse_other_head_dims(cuda_device):
     with pytest.raises(ValueError, match="head dim 96"):
         dkernel.decode_attention_cuda(qd, kd, kd, pos)
     with pytest.raises(TypeError):
-        fkernel.flash_attention_cuda(q.half(), kv.half(), kv.half())
+        fkernel.flash_attention_cuda(*[torch.zeros((1, 2, 8, 32), dtype=torch.float16,
+                                                   device=cuda_device)] * 3)
     with pytest.raises(ValueError):
         dkernel.decode_attention_cuda(torch.zeros((1, 4, 64), device=cuda_device),
                                       torch.zeros((1, 3, 16, 64), device=cuda_device),

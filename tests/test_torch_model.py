@@ -50,8 +50,8 @@ def test_registry_matches_jax():
     assert treg.get("canonicalizer-100m").dtype is torch.bfloat16
 
 
-def _jax_params(name, dtype=jnp.float32, key=0):
-    cfg = dataclasses.replace(jreg.reduced(name), dtype=dtype)
+def _jax_params(name, dtype=jnp.float32, key=0, **overrides):
+    cfg = dataclasses.replace(jreg.reduced(name), dtype=dtype, **overrides)
     return cfg, cfg.build().init_params(cfg, jax.random.PRNGKey(key))
 
 
@@ -107,13 +107,27 @@ def _inputs(cfg, b, s, seed=0):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("name", DENSE)
 def test_dense_logits_match_jax(name, dtype):
+    _logits_match_jax(name, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gemma_shape_at_head_dim_256_matches_jax(dtype):
+    """``reduced("gemma-2b")`` (4 query heads over 1 KV head, geglu, tied
+    embeddings, the gemma embedding scale) widened to gemma-2b's head dim
+    of 256, which the attention kernels are now built for."""
+    _logits_match_jax("gemma-2b", dtype, head_dim=256)
+
+
+def _logits_match_jax(name, dtype, **overrides):
+    """Converted weights: ``forward``, ``prefill`` and one ``decode_step``
+    of ``reduced(name)`` (with ``overrides``) against the JAX model's."""
     jd, td = DTYPES[dtype]
     b, s, tol = (2, 32, 1e-4) if dtype == "float32" else (2, 8, 5e-2)
-    jcfg0, jp32 = _jax_params(name)
+    jcfg0, jp32 = _jax_params(name, **overrides)
     jcfg = dataclasses.replace(jcfg0, dtype=jd)
     mod = jcfg.build()
     jp = jax.tree.map(lambda a: a.astype(jd), jp32)
-    tcfg = dataclasses.replace(treg.reduced(name), dtype=td)
+    tcfg = dataclasses.replace(treg.reduced(name), dtype=td, **overrides)
     tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp32), device="cpu")
     tokens, emb = _inputs(jcfg, b, s)
     nxt = tokens[:, -1]
