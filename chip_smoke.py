@@ -76,10 +76,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
              attention, chosen by the tensors' device) gives the card's
              prefill and decode logits within 1e-3, and the share of
              identical greedy tokens over one generate; (c) 8 SSB NL
-             requests, one engine batch, through a tenant whose NL
-             canonicalizer is ``MemoizedNL(CanonicalizerService(engine))``
-             (bfloat16 engine): every NLResult keeps the protocol, every
-             served table matches the numpy oracle.  The attention kernels'
+             requests, one engine batch, through a ``CacheService`` tenant
+             whose NL canonicalizer is
+             ``MemoizedNL(CanonicalizerService(engine))`` (bfloat16
+             engine): every NLResult keeps the protocol, every served
+             table matches the numpy oracle.  The attention kernels'
              launch counts are read from (c) alone.
 4. reduced — ``launch.serve --reduced`` on the card: one engine batch of 8
              SSB NL requests through ``serve.llm_canonicalizer(wl,
@@ -106,30 +107,44 @@ Phases, in order; any failed check raises and the script exits non-zero:
              the float32 model on the CPU (plain SSD scan) against the
              card, prefill and decode logits within 1e-3 at depth 12, and
              the share of identical greedy tokens at full depth; (c) 16 SSB
-             NL requests in batches of 8 through a
+             NL requests in batches of 8 through a ``CacheService``
              tenant whose NL canonicalizer is ``serve.llm_canonicalizer``'s
              ``MemoizedNL(CanonicalizerService(engine))`` over mamba2-780m
              (bfloat16): the protocol kept, every table against the oracle,
              one ssd_scan launch per layer and engine batch.  The ssd_scan
              launch count is read from (c) alone.
 7. serve   — SSB at ``--n-fact`` rows (SF1's LINEORDER has 6,000,000)
-             through the SQL pipeline and the semantic cache: the SSB SQL
-             stream, the hierarchical drill stream, a 6-tile dashboard
-             refresh (one shared scan) and one request whose filter needs
-             the host-mask branch.  Every served table is checked against
-             the numpy oracle; the seg_agg launch counts are read from this
-             phase alone.  Prints per-stage p50/p95 of the request path.
-             Kernel B's launches are recorded by shape (N, M, P, K, S, G,
-             op); at each shape, on random inputs, kernel B is checked
-             against its plain version, run twice (bit-identical where its
-             slots are per thread or warp, and for MIN/MAX everywhere) and
-             timed beside its byte bound: the table and launches x (ms -
-             bound).
+             through ``CacheService`` (``serve.build_tenant``, a one-shard
+             cluster cache): the SSB SQL stream, the hierarchical drill
+             stream, a 6-tile dashboard refresh (one shared scan) and one
+             request whose filter needs the host-mask branch. Every served
+             table is checked against the numpy oracle; the seg_agg launch
+             counts are read from this phase alone. Prints per-stage p50/p95
+             of the request path. Kernel B's launches are recorded by shape
+             (N, M, P, K, S, G, op); at each shape, on random inputs, kernel
+             B is checked against its plain version, run twice
+             (bit-identical where its slots are per thread or warp, and
+             for MIN/MAX everywhere) and timed beside its byte bound: the table
+             and launches x (ms - bound).
 8. nl      — the SSB mixed stream (SQL and NL) through a fresh tenant whose
              NL canonicalizer is ``MemoizedNL(SimulatedLLM)``, on the same
              dataset: every served table against the numpy oracle, no false
              hit, at least one NL hit.
-9. profile — a fresh dataset and tenant replay the first 64 SSB requests
+9. service — the same dataset through ``register_tenant(..., shards=4)``:
+             the SSB SQL and mixed streams interleaved across intents (a
+             batch carries several measure families, whose misses run on
+             the service's ``shard-miss`` threads at once), the drill
+             stream, and a batch of the host-mask request and two
+             dashboard tiles (kernels A and B from two shards).  Every
+             table against the oracle; kernel A and B calls recorded by
+             calling thread and batch: at least one batch with calls from
+             two or more ``shard-miss`` threads.  Then four new tiles with
+             ``backend.error`` injected once: the retry reaches kernel B
+             and the tables equal the oracle's; with the plan cleared,
+             nothing is armed and one more batch retries nothing.  Prints
+             statuses, request and miss-execute p50/p95, the batches run
+             shard-parallel and the wall time.
+10. profile — a fresh dataset and tenant replay the first 64 SSB requests
              under ``torch.profiler`` (device busy share of a cold start, the
              kernels and copies that took the most device time), and again
              under ``cProfile`` (host functions by own time); then one more
@@ -138,6 +153,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
              engines: device busy share of prefill + decode loop, device ms
              per decode step against host ms per step, and the top device
              ops.
+
+Every phase that goes through ``CacheService`` fails on any failure or
+degraded count, any result with ``error`` set, or a status other than a
+hit, a miss or a bypass: the service turns a backend exception (a kernel
+that fails to launch) into such a result, not into an exception.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Exits
@@ -1079,6 +1099,23 @@ def _statuses(results) -> dict:
                         for s in {r.status for r in results}}.items()))
 
 
+SERVED = {"hit_exact", "hit_rollup", "hit_filterdown", "hit_compose", "miss", "bypass"}
+
+
+def uncontained(tenant, results, what: str) -> None:
+    """Raise on anything the service's containment boundary turned into a
+    result: a failure or degraded count, a result carrying an error, a
+    status other than a hit, a miss or a bypass.  A kernel that fails to
+    launch on the card would show here, not as an exception."""
+    errors = [r for r in results if r.error is not None or r.status not in SERVED]
+    if tenant.stats.failures or tenant.stats.degraded or errors:
+        first = errors[0] if errors else None
+        raise AssertionError(
+            f"{what}: {tenant.stats.failures} failures, {tenant.stats.degraded} "
+            f"degraded, {len(errors)} results with an error or another status; first: "
+            f"{None if first is None else (first.status, first.error, first.provenance)}")
+
+
 # ----------------------------------------------------------------- llm
 
 
@@ -1094,8 +1131,8 @@ def _prompt_len(tok, texts, max_len: int = 512) -> int:
 
 
 def _nl_batch(nl, wl, oracle, texts) -> dict:
-    """``texts`` in engine batches of 8 through a tenant whose NL
-    canonicalizer is ``nl``, a ``MemoizedNL(CanonicalizerService(engine))``,
+    """``texts`` in engine batches of 8 through a ``CacheService`` tenant
+    whose NL canonicalizer is ``nl``, a ``MemoizedNL(CanonicalizerService(engine))``,
     the launch counts zeroed just before and read just after: every
     NLResult keeps the protocol (signature None iff error set), every
     served table matches the oracle, and the model launched its kernels
@@ -1106,22 +1143,23 @@ def _nl_batch(nl, wl, oracle, texts) -> dict:
 
     from repro_torch.kernels.binding import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
-    from repro_torch.service.pipeline import QueryRequest, run_pipeline
+    from repro_torch.service import CacheService, QueryRequest
     from repro_torch.training.tokenizer import build_tokenizer
 
     engine = nl.inner.engine
     cfg = engine.cfg
-    tenant = serve.build_tenant(wl, device="cuda", nl=nl)
+    svc = CacheService()
+    tenant = serve.build_tenant(svc, wl, device="cuda", nl=nl)
     torch.cuda.synchronize()
     steps0, host0, model0 = engine.steps, engine.host_s, engine.model_s
     reset_launch_counts()
     t0 = time.perf_counter()
-    results = []
-    for i in range(0, len(texts), NL_BATCH):
-        results += run_pipeline(tenant, [QueryRequest(nl=t) for t in texts[i:i + NL_BATCH]])
+    results = serve.replay(svc, [QueryRequest(nl=t, tenant=serve.TENANT) for t in texts],
+                           batch=NL_BATCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    uncontained(tenant, results, f"{cfg.name} NL requests")
     steps = engine.steps - steps0
     host_s, model_s = engine.host_s - host0, engine.model_s - model0
     for r in nl._memo.values():
@@ -1486,9 +1524,10 @@ def serve_phase(wl, oracle) -> dict:
 
     from repro_torch.kernels.binding import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
-    from repro_torch.service.pipeline import QueryRequest, run_pipeline
+    from repro_torch.service import CacheService
 
-    tenant = serve.build_tenant(wl, device="cuda")
+    svc = CacheService()
+    tenant = serve.build_tenant(svc, wl, device="cuda", shards=1)
     torch.cuda.reset_peak_memory_stats()
 
     secs = {}
@@ -1497,16 +1536,16 @@ def serve_phase(wl, oracle) -> dict:
     results = []
     with FusedShapes() as shapes:
         for name, sqls in serve.sql_streams(wl).items():
-            results += serve.replay(tenant, sqls, batch=8)
+            results += serve.replay(svc, sqls, batch=8)
         before = launch_counts()
         groups = tenant.backend.batch_groups
-        tiles = run_pipeline(tenant, [QueryRequest(sql=DASHBOARD.format(y=y))
-                                      for y in range(1992, 1998)])
+        tiles = serve.replay(svc, [DASHBOARD.format(y=y) for y in range(1992, 1998)])
         mid = launch_counts()
-        host = run_pipeline(tenant, [QueryRequest(sql=HOST_MASK)])
+        host = serve.replay(svc, [HOST_MASK])
         torch.cuda.synchronize()
     launches = launch_counts()
     secs["serve"] = time.perf_counter() - t0
+    uncontained(tenant, results + tiles + host, "[serve]")
     if sum(shapes.counts.values()) != launches["seg_agg_fused"]:
         raise AssertionError(f"{sum(shapes.counts.values())} kernel B shapes recorded for "
                              f"{launches['seg_agg_fused']} launches")
@@ -1576,16 +1615,19 @@ def nl_phase(wl, oracle) -> dict:
     from repro_torch.core.nl_canon import MemoizedNL, SimulatedLLM
     from repro_torch.kernels.binding import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
+    from repro_torch.service import CacheService
 
-    tenant = serve.build_tenant(wl, device="cuda",
+    svc = CacheService()
+    tenant = serve.build_tenant(svc, wl, device="cuda",
                                 nl=MemoizedNL(SimulatedLLM(wl.vocab)))
     reqs = serve.mixed_streams(wl)["ssb_mixed"]
     reset_launch_counts()
     t0 = time.perf_counter()
-    results = serve.replay(tenant, reqs, batch=8)
+    results = serve.replay(svc, reqs, batch=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    uncontained(tenant, results, "[nl]")
     checked = oracle.check(results)
     nl = [r for r in results if r.origin == "nl"]
     nl_hits = sum(r.hit for r in nl)
@@ -1599,15 +1641,188 @@ def nl_phase(wl, oracle) -> dict:
         "hit_rate": tenant.cache.stats.hit_rate, "serve_s": wall, **checked}}
 
 
+# --------------------------------------------------------------- service
+
+
+SERVICE_SHARDS = 4
+
+
+class ThreadLaunches:
+    """Within its ``with``, which thread called kernel A
+    (``kernel.seg_agg_cuda``) or kernel B (``kernel.seg_agg_fused_cuda``),
+    by batch: both are wrapped for the block's duration, and the calls
+    count under the batch named by ``batch`` when they were made."""
+
+    def __enter__(self):
+        import collections
+        import threading
+
+        from repro_torch.kernels.seg_agg import kernel
+
+        self.kernel = kernel
+        self.real = {name: getattr(kernel, name) for name in ("seg_agg_cuda",
+                                                              "seg_agg_fused_cuda")}
+        self.batch = None
+        self.calls: dict = collections.defaultdict(collections.Counter)
+        lock = threading.Lock()
+
+        def wrapped(name, fn):
+            def recording(*args, **kw):
+                with lock:
+                    self.calls[self.batch][(threading.current_thread().name, name)] += 1
+                return fn(*args, **kw)
+            return recording
+
+        for name, fn in self.real.items():
+            setattr(kernel, name, wrapped(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.kernel, name, fn)
+
+    def shard_threads(self, batch) -> set:
+        return {th for th, _ in self.calls.get(batch, ()) if th.startswith("shard-miss")}
+
+
+def _fire_once_spec(point: str, arrivals: int = 8) -> str:
+    """A fault spec under which the first arrival at ``point`` fires and
+    the next ``arrivals - 1`` do not (the draws are counter-based)."""
+    from repro_torch.resilience.faults import FaultPlan, parse
+
+    for seed in range(100_000):
+        spec = f"{point}:0.5:{seed}"
+        plan = FaultPlan(parse(spec))
+        if [plan.should_fire(point) for _ in range(arrivals)] == [True] + [False] * (arrivals - 1):
+            return spec
+    raise AssertionError(f"no seed fires {point} once")
+
+
+def service_phase(wl, oracle) -> dict:
+    """SSB through ``CacheService.register_tenant(..., shards=4)`` on the
+    card: the SSB SQL stream and the SSB mixed stream (NL through
+    ``MemoizedNL(SimulatedLLM)``), both interleaved across intents so that
+    batches carry several measure families, the drill stream, and a batch
+    of a host-mask request and two dashboard tiles (kernels A and B from
+    two shards).  Misses of one batch in different shards run on the
+    service's ``shard-miss`` threads at once.  Then one batch of four new
+    dashboard tiles with ``backend.error`` injected once (the retry must
+    reach kernel B and serve the oracle's tables), and one more batch after
+    the plan is cleared (nothing may fire)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nl_canon import MemoizedNL, SimulatedLLM
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.resilience import faults
+    from repro_torch.service import CacheService
+
+    svc = CacheService()
+    tenant = serve.build_tenant(svc, wl, device="cuda", nl=MemoizedNL(SimulatedLLM(wl.vocab)),
+                                shards=SERVICE_SHARDS)
+    batches = []
+    for name, reqs in (
+            ("ssb_sql", serve.sql_streams(wl, order="interleaved")["ssb_sql"]),
+            ("drill", serve.sql_streams(wl)["drill"]),
+            ("ssb_mixed", serve.mixed_streams(wl, order="interleaved")["ssb_mixed"]),
+            ("cross_family", [HOST_MASK] + [DASHBOARD.format(y=y) for y in (1992, 1993)])):
+        batches += [(name, reqs[i:i + 8]) for i in range(0, len(reqs), 8)]
+    spec = _fire_once_spec("backend.error")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, by_batch = [], []
+    with ThreadLaunches() as threads:
+        for i, (name, reqs) in enumerate(batches):
+            threads.batch = i
+            out = serve.replay(svc, reqs)
+            results += out
+            by_batch.append(out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+
+        # one backend error, then the retry
+        retries0 = tenant.stats.retries
+        threads.batch = "fault"
+        before = launch_counts()
+        with faults.scoped(spec) as plan:
+            faulted = serve.replay(svc, [DASHBOARD.format(y=y) for y in range(1994, 1998)])
+            fired = dict(plan.counts()["fired"])
+        after_fault = launch_counts()
+        armed = [s.point for s in faults.active_plan().specs] + \
+            [v for v in (os.environ.get(faults.ENV_VAR),) if v]
+        threads.batch = "cleared"
+        cleared = serve.replay(svc, [DASHBOARD.format(y=1998)])
+        torch.cuda.synchronize()
+        fault_threads = {th for th, _ in threads.calls["fault"]}
+
+    uncontained(tenant, results + faulted + cleared, "[service]")
+    checked = oracle.check(results + faulted + cleared)
+    if fired != {"backend.error": 1} or tenant.stats.retries - retries0 != 1:
+        raise AssertionError(f"backend.error fired {fired}, "
+                             f"{tenant.stats.retries - retries0} retries")
+    if [r.status for r in faulted] != ["miss"] * 4 \
+            or not all("retry:1" in r.provenance for r in faulted):
+        raise AssertionError(f"fault batch: {[(r.status, r.provenance) for r in faulted]}")
+    if after_fault["seg_agg_fused"] - before["seg_agg_fused"] < 1 or not fault_threads:
+        raise AssertionError(f"the retry did not reach kernel B: {before} -> {after_fault}")
+    if armed or tenant.stats.retries - retries0 != 1 \
+            or any(p.startswith("retry:") for r in cleared for p in r.provenance):
+        raise AssertionError(f"faults still armed after the plan was cleared: {armed}, "
+                             f"{[r.provenance for r in cleared]}")
+    parallel = [i for i in range(len(batches)) if len(threads.shard_threads(i)) >= 2]
+    if not parallel:
+        raise AssertionError("no batch launched kernel A or B from two shard-miss threads")
+    if not (launches["seg_agg"] and launches["seg_agg_fused"]):
+        raise AssertionError(f"a kernel was never launched by [service]: {launches}")
+    cross = len(batches) - 1
+    cross_kernels = {k for _, k in threads.calls[cross]}
+    if len(threads.shard_threads(cross)) < 2 or len(cross_kernels) < 2:
+        raise AssertionError(f"cross-family batch: {dict(threads.calls[cross])}")
+
+    per_req = np.array([sum(r.timings_ms.values()) for r in results])
+    scans = [r.timings_ms["execute"] for r in results if r.status == "miss" and not r.deduped]
+    s = tenant.cache.stats
+    return {"launches": launches, "summary": {
+        "shards": SERVICE_SHARDS, "requests": len(results), "batches": len(batches),
+        "statuses": _statuses(results), "hit_rate": s.hit_rate, **checked,
+        "failures": tenant.stats.failures, "degraded": tenant.stats.degraded,
+        "shard_parallel_batches": len(parallel),
+        "shard_parallel_batch_threads": {str(i): sorted(threads.shard_threads(i))
+                                         for i in parallel},
+        "cross_family_launches": {f"{th} {k}": n for (th, k), n in
+                                  sorted(threads.calls[cross].items())},
+        "request_ms_p50": float(np.percentile(per_req, 50)),
+        "request_ms_p95": float(np.percentile(per_req, 95)),
+        "miss_execute_ms_p50": float(np.percentile(scans, 50)),
+        "miss_execute_ms_p95": float(np.percentile(scans, 95)),
+        "fault": {"spec": spec, "fired": fired, "retries": tenant.stats.retries - retries0,
+                  "statuses": _statuses(faulted),
+                  "kernel_b_launches": after_fault["seg_agg_fused"] - before["seg_agg_fused"],
+                  "threads": sorted(fault_threads), "armed_after_clear": armed,
+                  "after_clear": _statuses(cleared)},
+        "by_shard": [d["entries"] for d in tenant.cache.stats_by_shard()],
+        "wall_s": wall}}
+
+
 # --------------------------------------------------------------- profile
 
 
 def _cold_tenant(n_fact: int, seed: int, requests: int):
+    """A fresh dataset and a ``CacheService`` with one tenant over it, and
+    the first ``requests`` SSB SQL requests."""
     from repro_torch.launch import serve
+    from repro_torch.service import CacheService
     from repro_torch.workloads import ssb
 
     wl = ssb.build(n_fact=n_fact, seed=seed)
-    return serve.build_tenant(wl, device="cuda"), serve.sql_streams(wl, requests)["ssb_sql"]
+    svc = CacheService()
+    serve.build_tenant(svc, wl, device="cuda")
+    return svc, serve.sql_streams(wl, requests)["ssb_sql"]
 
 
 def _device_ops(prof) -> dict[str, tuple[float, int]]:
@@ -1644,16 +1859,16 @@ def profile_sample(n_fact: int, seed: int, requests: int = 64) -> dict:
     with profile(activities=acts):  # the tracer's start-up stays out of the window
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    tenant, sqls = _cold_tenant(n_fact, seed, requests)
+    svc, sqls = _cold_tenant(n_fact, seed, requests)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        serve.replay(tenant, sqls, batch=8)
+        serve.replay(svc, sqls, batch=8)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    tenant, sqls = _cold_tenant(n_fact, seed, requests)
+    svc, sqls = _cold_tenant(n_fact, seed, requests)
     host = cProfile.Profile()
-    host.runcall(serve.replay, tenant, sqls, 8)
+    host.runcall(serve.replay, svc, sqls, 8)
     torch.cuda.synchronize()
     st = pstats.Stats(host).stats
     hot = sorted(st.items(), key=lambda kv: -kv[1][2])[:8]
@@ -1837,6 +2052,10 @@ def main(argv=None) -> int:
     nl = nl_phase(wl, oracle)
     print(f"[nl] {json.dumps(nl['summary'])} launches {json.dumps(nl['launches'])} "
           f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded = service_phase(wl, oracle)
+    print(f"[service] {json.dumps(sharded['summary'])} launches "
+          f"{json.dumps(sharded['launches'])} in {time.perf_counter() - t0:.1f} s")
     for what, run in (("", lambda: profile_sample(args.n_fact, args.seed)),
                       ("engine ", lambda: profile_engine(llm["engine"], wl)),
                       ("mamba2 engine ", lambda: profile_engine(ssm["engine"], wl))):

@@ -38,9 +38,8 @@ promote transparently back through the same lookup path (``tier="cold"``
 on the result is the only observable difference).  Demoted entries keep
 their metadata and derivation-index membership hot, so probe order
 survives demotion.  Entries may carry a TTL (per-entry or cache default),
-expired lazily at lookup.  The ``save_cache``/``load_cache`` shims over
-the store's crash-safe manifest are not part of this package yet: the
-durable store comes with the storage layer.
+expired lazily at lookup.  ``save_cache``/``load_cache`` are thin shims
+over the store's crash-safe manifest.
 """
 from __future__ import annotations
 
@@ -1070,3 +1069,81 @@ class SemanticCache:
                     "version": e.version,
                 })
         return out
+
+
+# ------------------------------------------------------------- persistence
+
+
+def save_cache(cache: SemanticCache, path: str) -> int:
+    """Spill the cache to disk — now a thin shim over the tiered store
+    (:mod:`repro_torch.storage`): one ``.npz`` payload per entry plus the
+    crash-safe manifest (checkpoint + CRC-framed WAL, both written via
+    temp file + fsync + atomic rename).  Returns the number of live entries.
+
+    Incremental: an entry whose durable record already matches its
+    ``version``/``snapshot_id`` costs only a metadata log record, not a
+    payload rewrite.  Keys present on disk but no longer live in the cache
+    are tombstoned (and their payload files removed), so a later
+    ``load_cache`` cannot resurrect them.  When the cache already has this
+    very directory attached as its store, the attached engine is reused
+    (its pending write-behind state stays coherent)."""
+    import os
+
+    from ..storage.engine import TieredStore
+
+    target = os.path.abspath(path)
+    attached = cache.store is not None and cache.store.path == target
+    store = cache.store if attached else TieredStore(target, async_spill=False)
+    if not attached:
+        store.open()
+    live: dict = {}
+    for key, e in cache._entries.items():
+        live[key] = (e, e.table)
+    for key, e in cache._cold.items():
+        if attached:
+            live[key] = (e, None)  # already durable in this very store
+        else:
+            t = cache.store.peek(key) if cache.store is not None else None
+            if t is not None:
+                live[key] = (e, t)
+    for key, (e, t) in live.items():
+        if t is not None:
+            store.spill(key, e, t)
+    for key in store.keys():
+        if key not in live:
+            store.delete(key)
+    store.flush()
+    store.compact()
+    if not attached:
+        store.close(compact=False)
+    return len(live)
+
+
+def load_cache(cache: SemanticCache, path: str) -> int:
+    """Warm a cache from a spill directory — a shim over the tiered store's
+    manifest replay.  Entries re-validate their key against the recomputed
+    signature hash (tamper/versioning guard), payloads re-verify their
+    sha256, and the persisted ``lru_stamp``/``store_stamp`` ride back in so
+    LRU order and derivation probe MRU order reconstruct deterministically
+    (the untiered loader reset both by re-``put``-ing every entry)."""
+    import os
+
+    from ..storage.engine import TieredStore
+
+    store = TieredStore(os.path.abspath(path), async_spill=False)
+    entries = store.open()
+    adopted = []
+    for e in entries:
+        key = e.signature.key()
+        table = store.peek(key)
+        if table is None:
+            continue  # damaged payload: never a false hit
+        e.table = table
+        e.table_nbytes = int(table.nbytes())
+        adopted.append(e)
+    store.close(compact=False)
+    if adopted:
+        live = set(cache.keys()) | set(cache.cold_keys())
+        adopted = [e for e in adopted if e.signature.key() not in live]
+        cache.rebuild(cache.export_entries() + adopted)
+    return len(adopted)

@@ -1,5 +1,6 @@
-"""What the ctypes-bound kernel wrappers share: dispatch by device, input
-checks, the launch-error check, and the one registry of kernel launches."""
+"""What the ctypes-bound kernel wrappers share: the one-time declaration of
+a library's C ABI, dispatch by device, input checks, the launch-error
+check, and the one registry of kernel launches."""
 from __future__ import annotations
 
 import collections
@@ -7,24 +8,47 @@ import ctypes
 
 import torch
 
+from ..analysis.sanitizer import make_lock
+
 PTR, LL, INT, FLOAT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
-_LAUNCHES: collections.Counter = collections.Counter()
+# the service's shard threads launch kernels concurrently
+_LAUNCH_LOCK = make_lock("kernels.binding._LAUNCH_LOCK")
+_LAUNCHES: collections.Counter = collections.Counter()  # guarded-by: _LAUNCH_LOCK
+_ABI_LOCK = make_lock("kernels.binding._ABI_LOCK")
+
+
+def declare_once(lib, declare):
+    """``lib`` after ``declare(lib)`` has set the ``argtypes`` and
+    ``restype`` of each of its functions: once per library, to its end,
+    under a lock.  A thread gets ``lib`` back only when every function is
+    declared; an undeclared one would take 64-bit arguments as C ``int``.
+    If ``declare`` raises, the next call runs it again."""
+    if getattr(lib, "_abi_declared", False):
+        return lib
+    with _ABI_LOCK:
+        if not getattr(lib, "_abi_declared", False):
+            declare(lib)
+            lib._abi_declared = True
+    return lib
 
 
 def count_launch(kernel: str) -> None:
     """Called by a wrapper once per launch of its kernel, and nowhere else."""
-    _LAUNCHES[kernel] += 1
+    with _LAUNCH_LOCK:
+        _LAUNCHES[kernel] += 1
 
 
 def launch_counts() -> collections.Counter:
     """Launches per kernel name since the last reset (0 for a kernel not
     launched)."""
-    return collections.Counter(_LAUNCHES)
+    with _LAUNCH_LOCK:
+        return collections.Counter(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
+    with _LAUNCH_LOCK:
+        _LAUNCHES.clear()
 
 
 def on_cuda(what: str, *tensors) -> bool:

@@ -26,7 +26,7 @@ import torch
 
 from ...analysis.sanitizer import make_lock
 from ..binding import (FLOAT, INT, PTR, check_aligned, check_tensor, count_launch,
-                       raise_on)
+                       declare_once, raise_on)
 from ..build import ATTN_HEAD_DIMS, load
 
 HEAD_DIMS = ATTN_HEAD_DIMS
@@ -41,20 +41,21 @@ _SCRATCH_LOCK = make_lock("decode_attn._SCRATCH_LOCK")
 _SCRATCH: dict[tuple[int, int], tuple] = {}  # guarded-by: _SCRATCH_LOCK
 
 
+def _declare(lib) -> None:
+    lib.decode_attn_chunk.argtypes = []
+    lib.decode_attn_chunk.restype = INT
+    if lib.decode_attn_chunk() != CHUNK:
+        raise RuntimeError(f"decode_attn: the library's chunk is "
+                           f"{lib.decode_attn_chunk()}, the wrapper's {CHUNK}")
+    lib.decode_attn_error_string.argtypes = [INT]
+    lib.decode_attn_error_string.restype = ctypes.c_char_p
+    lib.decode_attn_launch.restype = INT
+    lib.decode_attn_launch.argtypes = [PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                                       INT, INT, FLOAT, INT, PTR, PTR, PTR]
+
+
 def _lib() -> ctypes.CDLL:
-    lib = load("decode_attn")
-    if lib.decode_attn_launch.argtypes is None:  # first use: declare the C ABI
-        lib.decode_attn_chunk.argtypes = []
-        lib.decode_attn_chunk.restype = INT
-        if lib.decode_attn_chunk() != CHUNK:
-            raise RuntimeError(f"decode_attn: the library's chunk is "
-                               f"{lib.decode_attn_chunk()}, the wrapper's {CHUNK}")
-        lib.decode_attn_error_string.argtypes = [INT]
-        lib.decode_attn_error_string.restype = ctypes.c_char_p
-        lib.decode_attn_launch.restype = INT
-        lib.decode_attn_launch.argtypes = [PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
-                                           INT, INT, FLOAT, INT, PTR, PTR, PTR]
-    return lib
+    return declare_once(load("decode_attn"), _declare)
 
 
 def _scratch(dev, stream: int, n_tickets: int, n_partial: int):

@@ -23,22 +23,23 @@ import ctypes
 import torch
 
 from ..binding import (FLOAT, INT, PTR, check_aligned, check_tensor, count_launch,
-                       raise_on)
+                       declare_once, raise_on)
 from ..build import ATTN_HEAD_DIMS, load
 
 HEAD_DIMS = ATTN_HEAD_DIMS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _declare(lib) -> None:
+    lib.flash_attn_launch.argtypes = [PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                                      INT, INT, FLOAT, INT, PTR]
+    lib.flash_attn_launch.restype = INT
+    lib.flash_attn_error_string.argtypes = [INT]
+    lib.flash_attn_error_string.restype = ctypes.c_char_p
+
+
 def _lib() -> ctypes.CDLL:
-    lib = load("flash_attn")
-    if lib.flash_attn_launch.argtypes is None:  # first use: declare the C ABI
-        lib.flash_attn_launch.argtypes = [PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-                                          INT, INT, FLOAT, INT, PTR]
-        lib.flash_attn_launch.restype = INT
-        lib.flash_attn_error_string.argtypes = [INT]
-        lib.flash_attn_error_string.restype = ctypes.c_char_p
-    return lib
+    return declare_once(load("flash_attn"), _declare)
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True, scale: float | None = None):

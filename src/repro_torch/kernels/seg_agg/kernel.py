@@ -36,7 +36,7 @@ import torch
 
 from ...analysis.sanitizer import make_lock
 from ..binding import (INT as _INT, LL as _LL, PTR as _PTR, check_aligned, check_tensor,
-                       count_launch, raise_on)
+                       count_launch, declare_once, raise_on)
 from ..build import load
 
 OPS = {"sum": 0, "min": 1, "max": 2}
@@ -54,24 +54,25 @@ _SCRATCH_LOCK = make_lock("seg_agg._SCRATCH_LOCK")
 _SCRATCH: dict[tuple[int, int], tuple] = {}  # guarded-by: _SCRATCH_LOCK
 
 
+def _declare(lib) -> None:
+    lib.seg_agg_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _LL, _INT, _INT,
+                                   _INT, _INT, _PTR, _PTR, _PTR]
+    lib.seg_agg_launch.restype = _INT
+    lib.seg_agg_plan.argtypes = [_LL, _INT, _INT, _INT, _INT, ctypes.POINTER(_LL)]
+    lib.seg_agg_plan.restype = _INT
+    lib.seg_agg_fused_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _LL,
+                                         _INT, _INT, _INT, _INT, _INT,
+                                         _INT, _PTR, _PTR, _PTR]
+    lib.seg_agg_fused_launch.restype = _INT
+    lib.seg_agg_fused_plan.argtypes = [_LL, _INT, _INT, _INT, _INT, _INT, _INT,
+                                       ctypes.POINTER(_LL)]
+    lib.seg_agg_fused_plan.restype = _INT
+    lib.seg_agg_error_string.argtypes = [_INT]
+    lib.seg_agg_error_string.restype = ctypes.c_char_p
+
+
 def _lib() -> ctypes.CDLL:
-    lib = load("seg_agg")
-    if lib.seg_agg_launch.argtypes is None:  # first use: declare the C ABI
-        lib.seg_agg_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _LL, _INT, _INT,
-                                       _INT, _INT, _PTR, _PTR, _PTR]
-        lib.seg_agg_launch.restype = _INT
-        lib.seg_agg_plan.argtypes = [_LL, _INT, _INT, _INT, _INT, ctypes.POINTER(_LL)]
-        lib.seg_agg_plan.restype = _INT
-        lib.seg_agg_fused_launch.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _LL,
-                                             _INT, _INT, _INT, _INT, _INT,
-                                             _INT, _PTR, _PTR, _PTR]
-        lib.seg_agg_fused_launch.restype = _INT
-        lib.seg_agg_fused_plan.argtypes = [_LL, _INT, _INT, _INT, _INT, _INT, _INT,
-                                           ctypes.POINTER(_LL)]
-        lib.seg_agg_fused_plan.restype = _INT
-        lib.seg_agg_error_string.argtypes = [_INT]
-        lib.seg_agg_error_string.restype = ctypes.c_char_p
-    return lib
+    return declare_once(load("seg_agg"), _declare)
 
 
 def _check(name: str, t, dtype, ndim: int, device) -> None:

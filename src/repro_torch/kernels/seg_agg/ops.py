@@ -27,9 +27,12 @@ from __future__ import annotations
 
 import torch
 
+from ...analysis.sanitizer import make_lock
 from . import kernel, ref
 
-_LAUNCHES = {"n": 0}
+# the service's shard threads dispatch concurrently
+_LAUNCH_LOCK = make_lock("seg_agg.ops._LAUNCH_LOCK")
+_LAUNCHES = {"n": 0}  # guarded-by: _LAUNCH_LOCK
 
 
 def launch_count() -> int:
@@ -38,11 +41,13 @@ def launch_count() -> int:
 
 
 def reset_launch_count() -> None:
-    _LAUNCHES["n"] = 0
+    with _LAUNCH_LOCK:
+        _LAUNCHES["n"] = 0
 
 
 def _record_launch() -> None:
-    _LAUNCHES["n"] += 1
+    with _LAUNCH_LOCK:
+        _LAUNCHES["n"] += 1
 
 
 def _on_cuda(*tensors) -> bool:

@@ -22,7 +22,8 @@ import ctypes
 
 import torch
 
-from ..binding import INT, PTR, check_aligned, check_tensor, count_launch, raise_on
+from ..binding import (INT, PTR, check_aligned, check_tensor, count_launch, declare_once,
+                       raise_on)
 from ..build import load
 
 HEAD_DIMS = (16, 32, 64)
@@ -31,15 +32,16 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 F32 = (torch.float32,)
 
 
+def _declare(lib) -> None:
+    lib.ssd_scan_launch.argtypes = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT,
+                                    INT, INT, INT, INT, PTR]
+    lib.ssd_scan_launch.restype = INT
+    lib.ssd_scan_error_string.argtypes = [INT]
+    lib.ssd_scan_error_string.restype = ctypes.c_char_p
+
+
 def _lib() -> ctypes.CDLL:
-    lib = load("ssd_scan")
-    if lib.ssd_scan_launch.argtypes is None:  # first use: declare the C ABI
-        lib.ssd_scan_launch.argtypes = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT,
-                                        INT, INT, INT, INT, PTR]
-        lib.ssd_scan_launch.restype = INT
-        lib.ssd_scan_error_string.argtypes = [INT]
-        lib.ssd_scan_error_string.restype = ctypes.c_char_p
-    return lib
+    return declare_once(load("ssd_scan"), _declare)
 
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm, return_state: bool = False):

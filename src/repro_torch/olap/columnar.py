@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import dataclasses
 import datetime as _dt
+import threading
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..analysis.sanitizer import make_lock
 from ..core.schema import Column, Dimension, FactTable, Hierarchy, StarSchema
 
 _EPOCH = _dt.date(1970, 1, 1)
@@ -379,12 +381,16 @@ class DeviceDataset:
     def __init__(self, dataset: Dataset, device: torch.device):
         self.ds = dataset
         self.device = device
-        self._store: dict = {}
+        self._store: dict = {}  # guarded-by: external[idempotent memo; cleared between requests]
         # dimension-column uploads live in their own store so it can be
         # *aliased* between mirrors (see ``share_dim_arrays``)
-        self._dim_store: dict = {}
-        self.upload_ms = 0.0
-        self._timing_depth = 0
+        self._dim_store: dict = {}  # guarded-by: external[idempotent memo; aliased before first use]
+        self.upload_ms = 0.0  # guarded-by: self._upload_lock
+        self._upload_lock = make_lock("DeviceDataset._upload_lock")
+        # cache() nesting depth, per thread: the service's shard threads
+        # upload concurrently, and one thread's nested build must not keep
+        # another's outermost upload out of upload_ms
+        self._depth = threading.local()
 
     @property
     def num_rows(self) -> int:
@@ -397,23 +403,28 @@ class DeviceDataset:
         """Memoized device tensor: ``build()`` may return a host numpy array
         (uploaded) or a tensor (moved to the device if needed).  Integer data
         is stored as int32 and float data as float32.  Keys are
-        caller-namespaced tuples, e.g. ``('aligned', 'customer.c_region')``."""
+        caller-namespaced tuples, e.g. ``('aligned', 'customer.c_region')``.
+        Concurrent builders (the service's shard threads) may race on a
+        cold key; both build the same value, last write wins — benign for
+        pure uploads."""
         store = self._map(key)
         v = store.get(key)
         if v is None:
-            # only the outermost frame accrues upload_ms: builders call
-            # cache() recursively (aligned -> col/dimcol) and the inner
+            # only the thread's outermost frame accrues upload_ms: builders
+            # call cache() recursively (aligned -> col/dimcol) and the inner
             # elapsed is already inside the outer measurement
+            depth = getattr(self._depth, "n", 0)
             t0 = time.perf_counter()
-            self._timing_depth += 1
+            self._depth.n = depth + 1
             try:
                 v = _to_tensor(build(), self.device)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             finally:
-                self._timing_depth -= 1
-            if self._timing_depth == 0:
-                self.upload_ms += (time.perf_counter() - t0) * 1e3
+                self._depth.n = depth
+            if depth == 0:
+                with self._upload_lock:
+                    self.upload_ms += (time.perf_counter() - t0) * 1e3
             store[key] = v
         return v
 

@@ -225,6 +225,77 @@ def test_executor_on_cuda_matches_oracle(cuda_device):
     assert launch_counts()["seg_agg_fused"] > 0
 
 
+HOST_MASK = ("SELECT c_region, SUM(lo_revenue) AS rev, COUNT(*) AS n FROM lineorder "
+             "JOIN customer ON lineorder.lo_custkey = customer.c_key "
+             "WHERE lo_extendedprice > 5000.25 GROUP BY c_region")
+TILE = ("SELECT c_region, SUM(lo_revenue) AS rev, AVG(lo_quantity) AS q, COUNT(*) AS n, "
+        "MIN(lo_supplycost) AS lo, MAX(lo_supplycost) AS hi FROM lineorder "
+        "JOIN customer ON lineorder.lo_custkey = customer.c_key "
+        "JOIN dates ON lineorder.lo_orderdate = dates.d_key "
+        "WHERE d_year = {y} GROUP BY c_region")
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_service_on_cuda_matches_the_cpu_and_the_oracle(cuda_device, shards, monkeypatch):
+    """``CacheService`` over the card's executor: the SSB SQL stream
+    interleaved across intents (its batches carry several measure
+    families), then a host-mask request (kernel A) with two dashboard tiles
+    (kernel B), in batches of 8.  The statuses and tables of a tenant on
+    the CPU, every table equal to the numpy oracle, no failure, degraded
+    result or error; at ``shards=4`` kernels A and B are called from two or
+    more ``shard-miss`` threads within one batch, all on the default
+    stream."""
+    import threading
+
+    from repro_torch.launch import serve
+    from repro_torch.service import CacheService
+
+    calls: dict = {}
+    lock = threading.Lock()
+    batch = [0]
+    for name in ("seg_agg_cuda", "seg_agg_fused_cuda"):
+        real = getattr(tkernel, name)
+
+        def recording(*args, _real=real, _name=name, **kw):
+            with lock:
+                calls.setdefault(batch[0], set()).add(
+                    (threading.current_thread().name, _name))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(tkernel, name, recording)
+    sqls = serve.sql_streams(ssb.build(n_fact=200_000, seed=3), order="interleaved")["ssb_sql"]
+    sqls += [HOST_MASK, TILE.format(y=1992), TILE.format(y=1993)]
+    tenants = {}
+    for device in ("cpu", "cuda"):
+        wl = ssb.build(n_fact=200_000, seed=3)
+        svc = CacheService()
+        tenant = serve.build_tenant(svc, wl, device=device, shards=shards)
+        reset_launch_counts()
+        res = []
+        for i in range(0, len(sqls), 8):
+            batch[0] = i // 8
+            res += serve.replay(svc, sqls[i:i + 8])
+        tenants[device] = (wl, tenant, res, launch_counts())
+    wl, tenant, res, launches = tenants["cuda"]
+    cpu_res = tenants["cpu"][2]
+    assert [r.status for r in res] == [r.status for r in cpu_res]
+    assert tenant.stats.failures == tenant.stats.degraded == 0
+    assert all(r.error is None and r.table is not None for r in res)
+    oracle = OlapExecutor(wl.dataset, impl="numpy")
+    for r, c in zip(res, cpu_res):
+        want = oracle.execute(r.signature)
+        assert r.table.equals(want, ordered=bool(r.signature.order_by)), r.provenance
+        assert r.table.equals(c.table, ordered=bool(r.signature.order_by))
+    assert launches["seg_agg"] >= 1 and launches["seg_agg_fused"] >= 1
+    threads = {b: {th for th, _ in got if th.startswith("shard-miss")}
+               for b, got in calls.items()}
+    if shards == 4:
+        assert any(len(ths) >= 2 for ths in threads.values()), calls
+        assert {k for _, k in calls[(len(sqls) - 1) // 8]} == {"seg_agg_cuda", "seg_agg_fused_cuda"}
+    else:
+        assert not any(threads.values())
+
+
 ATTN_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (4e-3, 5e-4)}  # (rtol, atol)
 
 

@@ -40,7 +40,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_every_submodule_imports_without_jax():
     """In a fresh interpreter where ``jax`` and ``repro`` cannot be
-    imported, every module of the port imports."""
+    imported, every module of the port imports (the ``__main__`` modules
+    run their command when imported; ``python -m`` runs them elsewhere),
+    the service shell's subpackages among them."""
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, pkgutil, sys
         class Block(importlib.abc.MetaPathFinder):
@@ -50,16 +52,29 @@ def test_every_submodule_imports_without_jax():
         sys.meta_path.insert(0, Block())
         sys.path.insert(0, {str(ROOT / "src")!r})
         import repro_torch
-        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+                 if not m.name.endswith(".__main__")]
         for n in names:
             importlib.import_module(n)
         assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
-        print(len(names))
+        print(" ".join(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    names = set(out.stdout.split())
+    assert len(names) >= 60
+    for sub in ("analysis", "resilience", "obs", "cluster", "service", "storage"):
+        assert f"repro_torch.{sub}" in names, sub
+    assert {f"repro_torch.analysis.{m}" for m in (
+        "annotations", "findings", "lockcheck", "lockorder", "immutability", "cli")} <= names
+    assert {f"repro_torch.core.{m}" for m in ("metrics", "middleware", "refresh")} <= names
+    assert {f"repro_torch.service.{m}" for m in ("api", "service", "pipeline")} <= names
+    assert {f"repro_torch.storage.{m}" for m in ("manifest", "coldstore", "engine")} <= names
+    assert {f"repro_torch.cluster.{m}" for m in ("cluster", "shard", "flight")} <= names
+    assert {f"repro_torch.obs.{m}" for m in ("metrics", "trace", "audit")} <= names
+    assert {f"repro_torch.resilience.{m}" for m in (
+        "errors", "primitives", "policy", "faults")} <= names
 
 
 def test_default_device_raises_without_cuda(ssb_small, monkeypatch):

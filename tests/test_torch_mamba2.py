@@ -12,7 +12,7 @@ takes its plain chunked version there).
 * ``ServingEngine.generate`` at vocab 4096 and ``max_len`` 128 against the
   JAX engine: identical tokens and texts, constrained and not;
 * ``llm_canonicalizer(arch="mamba2-780m", reduced=True)`` serves an NL
-  batch through the pipeline.
+  batch through the cache service.
 """
 import dataclasses
 
@@ -31,7 +31,7 @@ from repro_torch.launch import serve
 from repro_torch.models import mamba2
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import engine
-from repro_torch.service.pipeline import QueryRequest, run_pipeline
+from repro_torch.service import CacheService, QueryRequest
 from repro_torch.training.tokenizer import build_tokenizer
 from repro_torch.workloads import ssb
 
@@ -189,10 +189,11 @@ def test_llm_canonicalizer_serves_nl_through_the_pipeline():
     eng = nl.inner.engine
     assert eng.cfg.kind == "ssm" and eng.mod is mamba2
     assert eng.cfg.vocab == build_tokenizer([wl]).vocab_size  # widened head
-    tenant = serve.build_tenant(wl, device="cpu", nl=nl)
+    svc = CacheService()
+    serve.build_tenant(svc, wl, device="cpu", nl=nl)
     texts = list(dict.fromkeys(q.text for q in wl.queries() if q.kind == "nl"))[:4]
     reset_launch_counts()
-    results = run_pipeline(tenant, [QueryRequest(nl=t) for t in texts])
+    results = svc.submit_batch([QueryRequest(nl=t, tenant=serve.TENANT) for t in texts])
     assert launch_counts()["ssd_scan"] == 0  # the CPU path
     assert len(results) == 4 and all(r.origin == "nl" for r in results)
     assert nl.calls == 4 and eng.steps > 0

@@ -1,7 +1,7 @@
-"""The port's SQL pipeline against the JAX ``CacheService`` end to end: the
-SSB SQL stream (13 intents x 21 variants) and the hierarchical drill stream
-at n_fact 4000, in batches of 8, through a plain ``SemanticCache`` with the
-dataset's level mapper.  Per-request statuses, provenance and tables, and
+"""The port's ``CacheService`` against the JAX ``CacheService`` end to end:
+the SSB SQL stream (13 intents x 21 variants) and the hierarchical drill
+stream at n_fact 4000, in batches of 8, through a plain ``SemanticCache``
+with the dataset's level mapper.  Per-request statuses, provenance and tables, and
 the cache's counters, must be identical."""
 import dataclasses
 
@@ -16,7 +16,7 @@ from repro_torch.kernels.seg_agg import ops as seg_ops
 from repro_torch.launch import serve
 from repro_torch.olap.columnar import from_reference
 from repro_torch.olap.executor import OlapExecutor
-from repro_torch.service.pipeline import Tenant
+from repro_torch.service import CacheService as PCacheService
 from repro_torch.workloads import ssb
 
 
@@ -48,10 +48,12 @@ def test_pipeline_matches_jax_service(ssb_small, streams):
     sqls = streams["ssb_sql"] + streams["drill"]
     jres, jcache, jtenant = _jax_replay(ssb_small, sqls)
     ds = from_reference(ssb_small.dataset)
-    tenant = Tenant.create(ds.schema, OlapExecutor(ds, device="cpu"),
-                           SemanticCache(ds.schema, level_mapper=ds.level_mapper()))
+    svc = PCacheService()
+    tenant = svc.register_tenant(
+        serve.TENANT, schema=ds.schema, backend=OlapExecutor(ds, device="cpu"),
+        cache=SemanticCache(ds.schema, level_mapper=ds.level_mapper()))
     seg_ops.reset_launch_count()
-    res = serve.replay(tenant, sqls, batch=8)
+    res = serve.replay(svc, sqls, batch=8)
     assert seg_ops.launch_count() > 0
     assert [r.status for r in res] == [r.status for r in jres]
     assert {"miss", "hit_exact", "hit_rollup"} <= {r.status for r in res}

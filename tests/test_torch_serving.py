@@ -5,7 +5,7 @@
   vocab 4096 (the reduced head of 256 is narrower than the SSB tokenizer's
   280 ids), float32, ``max_len`` 128, the JAX init converted: identical
   tokens and texts, mean log-probability within 1e-4;
-* the pipeline against the JAX ``CacheService`` with
+* the port's ``CacheService`` against the JAX ``CacheService`` with
   ``SafetyPolicy.balanced``: 16 SSB NL requests through
   ``MemoizedNL(CanonicalizerService(engine))`` (identical ``NLResult``s;
   with initialised weights every answer is malformed JSON and bypasses),
@@ -42,7 +42,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.olap.columnar import from_reference
 from repro_torch.olap.executor import OlapExecutor
 from repro_torch.serving import engine, json_decode
-from repro_torch.service.pipeline import QueryRequest, Tenant, run_pipeline
+from repro_torch.service import CacheService as PCacheService
+from repro_torch.service import QueryRequest
 from repro_torch.training.tokenizer import build_tokenizer
 from repro_torch.workloads import ssb
 
@@ -115,14 +116,16 @@ def _replay_both(ssb_small, port_wl, forms, jnl, nl):
     svc = CacheService()
     jtenant = _jax_tenant(svc, ssb_small, jnl)
     ds = from_reference(ssb_small.dataset)
-    tenant = Tenant.create(ds.schema, OlapExecutor(ds, device="cpu"),
-                           SemanticCache(ds.schema, level_mapper=ds.level_mapper()),
-                           nl=nl, policy=SafetyPolicy.balanced(port_wl.spatial_ambiguous))
+    psvc = PCacheService()
+    tenant = psvc.register_tenant(
+        "ssb", schema=ds.schema, backend=OlapExecutor(ds, device="cpu"),
+        cache=SemanticCache(ds.schema, level_mapper=ds.level_mapper()),
+        nl=nl, policy=SafetyPolicy.balanced(port_wl.spatial_ambiguous))
     jres, res = [], []
     for i in range(0, len(forms), 8):
         chunk = forms[i:i + 8]
         jres += svc.submit_batch([JQueryRequest(tenant="ssb", **{k: t}) for k, t in chunk])
-        res += run_pipeline(tenant, [QueryRequest(**{k: t}) for k, t in chunk])
+        res += psvc.submit_batch([QueryRequest(tenant="ssb", **{k: t}) for k, t in chunk])
     return jres, jtenant, res, tenant
 
 
