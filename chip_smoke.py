@@ -1813,16 +1813,16 @@ def service_phase(wl, oracle) -> dict:
 
 
 def _cold_tenant(n_fact: int, seed: int, requests: int):
-    """A fresh dataset and a ``CacheService`` with one tenant over it, and
-    the first ``requests`` SSB SQL requests."""
+    """A fresh dataset, a ``CacheService`` with one tenant over it, that
+    tenant, and the first ``requests`` SSB SQL requests."""
     from repro_torch.launch import serve
     from repro_torch.service import CacheService
     from repro_torch.workloads import ssb
 
     wl = ssb.build(n_fact=n_fact, seed=seed)
     svc = CacheService()
-    serve.build_tenant(svc, wl, device="cuda")
-    return svc, serve.sql_streams(wl, requests)["ssb_sql"]
+    tenant = serve.build_tenant(svc, wl, device="cuda")
+    return svc, tenant, serve.sql_streams(wl, requests)["ssb_sql"]
 
 
 def _device_ops(prof) -> dict[str, tuple[float, int]]:
@@ -1859,17 +1859,19 @@ def profile_sample(n_fact: int, seed: int, requests: int = 64) -> dict:
     with profile(activities=acts):  # the tracer's start-up stays out of the window
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    svc, sqls = _cold_tenant(n_fact, seed, requests)
+    svc, tenant, sqls = _cold_tenant(n_fact, seed, requests)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        serve.replay(svc, sqls, batch=8)
+        results = serve.replay(svc, sqls, batch=8)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    svc, sqls = _cold_tenant(n_fact, seed, requests)
+    uncontained(tenant, results, "[profile] torch.profiler replay")
+    svc, tenant, sqls = _cold_tenant(n_fact, seed, requests)
     host = cProfile.Profile()
-    host.runcall(serve.replay, svc, sqls, 8)
+    results = host.runcall(serve.replay, svc, sqls, 8)
     torch.cuda.synchronize()
+    uncontained(tenant, results, "[profile] cProfile replay")
     st = pstats.Stats(host).stats
     hot = sorted(st.items(), key=lambda kv: -kv[1][2])[:8]
     host_top = {f"{Path(f).name}:{ln}:{fn}": round(v[2] * 1e3, 1)

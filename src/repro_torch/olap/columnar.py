@@ -389,7 +389,10 @@ class DeviceDataset:
         self._upload_lock = make_lock("DeviceDataset._upload_lock")
         # cache() nesting depth, per thread: the service's shard threads
         # upload concurrently, and one thread's nested build must not keep
-        # another's outermost upload out of upload_ms
+        # another's outermost upload out of upload_ms.  upload_ms is then a
+        # sum of per-thread times, not wall time: where threads upload at
+        # once (shards > 1) their times overlap, and each includes a
+        # device-wide synchronize, so the sum can exceed the wall time
         self._depth = threading.local()
 
     @property

@@ -235,8 +235,22 @@ TILE = ("SELECT c_region, SUM(lo_revenue) AS rev, AVG(lo_quantity) AS q, COUNT(*
         "WHERE d_year = {y} GROUP BY c_region")
 
 
+def _chip_smoke():
+    """``chip_smoke.py``, beside ``tests/``, as a module."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        return importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(root)
+
+
 @pytest.mark.parametrize("shards", [1, 4])
-def test_service_on_cuda_matches_the_cpu_and_the_oracle(cuda_device, shards, monkeypatch):
+def test_service_on_cuda_matches_the_cpu_and_the_oracle(cuda_device, shards):
     """``CacheService`` over the card's executor: the SSB SQL stream
     interleaved across intents (its batches carry several measure
     families), then a host-mask request (kernel A) with two dashboard tiles
@@ -245,24 +259,10 @@ def test_service_on_cuda_matches_the_cpu_and_the_oracle(cuda_device, shards, mon
     result or error; at ``shards=4`` kernels A and B are called from two or
     more ``shard-miss`` threads within one batch, all on the default
     stream."""
-    import threading
-
     from repro_torch.launch import serve
     from repro_torch.service import CacheService
 
-    calls: dict = {}
-    lock = threading.Lock()
-    batch = [0]
-    for name in ("seg_agg_cuda", "seg_agg_fused_cuda"):
-        real = getattr(tkernel, name)
-
-        def recording(*args, _real=real, _name=name, **kw):
-            with lock:
-                calls.setdefault(batch[0], set()).add(
-                    (threading.current_thread().name, _name))
-            return _real(*args, **kw)
-
-        monkeypatch.setattr(tkernel, name, recording)
+    ThreadLaunches = _chip_smoke().ThreadLaunches
     sqls = serve.sql_streams(ssb.build(n_fact=200_000, seed=3), order="interleaved")["ssb_sql"]
     sqls += [HOST_MASK, TILE.format(y=1992), TILE.format(y=1993)]
     tenants = {}
@@ -272,9 +272,10 @@ def test_service_on_cuda_matches_the_cpu_and_the_oracle(cuda_device, shards, mon
         tenant = serve.build_tenant(svc, wl, device=device, shards=shards)
         reset_launch_counts()
         res = []
-        for i in range(0, len(sqls), 8):
-            batch[0] = i // 8
-            res += serve.replay(svc, sqls[i:i + 8])
+        with ThreadLaunches() as threads:
+            for i in range(0, len(sqls), 8):
+                threads.batch = i // 8
+                res += serve.replay(svc, sqls[i:i + 8])
         tenants[device] = (wl, tenant, res, launch_counts())
     wl, tenant, res, launches = tenants["cuda"]
     cpu_res = tenants["cpu"][2]
@@ -287,13 +288,14 @@ def test_service_on_cuda_matches_the_cpu_and_the_oracle(cuda_device, shards, mon
         assert r.table.equals(want, ordered=bool(r.signature.order_by)), r.provenance
         assert r.table.equals(c.table, ordered=bool(r.signature.order_by))
     assert launches["seg_agg"] >= 1 and launches["seg_agg_fused"] >= 1
-    threads = {b: {th for th, _ in got if th.startswith("shard-miss")}
-               for b, got in calls.items()}
+    # ``threads`` recorded the card's run, the last of the loop
+    shard_threads = {b: threads.shard_threads(b) for b in threads.calls}
     if shards == 4:
-        assert any(len(ths) >= 2 for ths in threads.values()), calls
-        assert {k for _, k in calls[(len(sqls) - 1) // 8]} == {"seg_agg_cuda", "seg_agg_fused_cuda"}
+        assert any(len(ths) >= 2 for ths in shard_threads.values()), dict(threads.calls)
+        last = threads.calls[(len(sqls) - 1) // 8]
+        assert {k for _, k in last} == {"seg_agg_cuda", "seg_agg_fused_cuda"}
     else:
-        assert not any(threads.values())
+        assert not any(shard_threads.values())
 
 
 ATTN_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (4e-3, 5e-4)}  # (rtol, atol)

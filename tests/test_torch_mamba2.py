@@ -190,13 +190,17 @@ def test_llm_canonicalizer_serves_nl_through_the_pipeline():
     assert eng.cfg.kind == "ssm" and eng.mod is mamba2
     assert eng.cfg.vocab == build_tokenizer([wl]).vocab_size  # widened head
     svc = CacheService()
-    serve.build_tenant(svc, wl, device="cpu", nl=nl)
+    tenant = serve.build_tenant(svc, wl, device="cpu", nl=nl)
     texts = list(dict.fromkeys(q.text for q in wl.queries() if q.kind == "nl"))[:4]
     reset_launch_counts()
     results = svc.submit_batch([QueryRequest(nl=t, tenant=serve.TENANT) for t in texts])
     assert launch_counts()["ssd_scan"] == 0  # the CPU path
+    # the service turns an engine exception into a result: none may be one
+    assert tenant.stats.failures == tenant.stats.degraded == 0
+    assert all(r.error is None for r in results)
     assert len(results) == 4 and all(r.origin == "nl" for r in results)
     assert nl.calls == 4 and eng.steps > 0
+    assert {t for t, _ in nl._memo} == set(texts)
     for r in nl._memo.values():
         assert (r.signature is None) == (r.error is not None)  # the protocol
 

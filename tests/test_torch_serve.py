@@ -4,6 +4,7 @@ stream at n_fact 4000, in batches of 8, through a plain ``SemanticCache``
 with the dataset's level mapper.  Per-request statuses, provenance and tables, and
 the cache's counters, must be identical."""
 import dataclasses
+import json
 
 import pytest
 
@@ -55,6 +56,7 @@ def test_pipeline_matches_jax_service(ssb_small, streams):
     seg_ops.reset_launch_count()
     res = serve.replay(svc, sqls, batch=8)
     assert seg_ops.launch_count() > 0
+    assert tenant.stats.failures == tenant.stats.degraded == 0
     assert [r.status for r in res] == [r.status for r in jres]
     assert {"miss", "hit_exact", "hit_rollup"} <= {r.status for r in res}
     for i, (r, jr) in enumerate(zip(res, jres)):
@@ -77,3 +79,19 @@ def test_serve_main_on_cpu(capsys):
                 "--simulated-llm"])
     out = capsys.readouterr().out
     assert '"requests": 242' in out and "hit_rate" in out
+
+
+@pytest.mark.parametrize("order", ["interleaved", "random", "zipf"])
+def test_serve_main_orders_the_stream_as_the_reference(ssb_small, capsys, order):
+    """``--order`` replays the SSB mixed stream in the JAX workload's order
+    for the same seed, through the service with nothing contained."""
+    wl = ssb.build(n_fact=4000, seed=0)
+    want = [(q.kind, q.text) for q in ssb_small.queries(order=order)[:42]]
+    got = serve.mixed_streams(wl, 42, order)["ssb_mixed"]
+    assert [("nl", r.nl) if r.nl is not None else ("sql", r.sql) for r in got] == want
+    serve.main(["--n-fact", "3000", "--queries", "42", "--device", "cpu",
+                "--simulated-llm", "--order", order])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["requests"] == 242
+    assert summary["failures"] == summary["degraded"] == 0
+    assert summary["misses"] > 0 and summary["hits_exact"] > 0

@@ -130,6 +130,7 @@ def _replay_both(ssb_small, port_wl, forms, jnl, nl):
 
 
 def _assert_same_results(forms, jres, jtenant, res, tenant):
+    assert tenant.stats.failures == tenant.stats.degraded == 0
     assert [r.status for r in res] == [r.status for r in jres]
     for i, (r, jr) in enumerate(zip(res, jres)):
         assert r.origin == jr.origin and r.provenance == jr.provenance, (i, forms[i])
