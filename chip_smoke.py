@@ -121,11 +121,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
              table is checked against the numpy oracle; the seg_agg launch
              counts are read from this phase alone. Prints per-stage p50/p95
              of the request path. Kernel B's launches are recorded by shape
-             (N, M, P, K, S, G, op); at each shape, on random inputs, kernel
-             B is checked against its plain version, run twice
-             (bit-identical where its slots are per thread or warp, and
-             for MIN/MAX everywhere) and timed beside its byte bound: the table
-             and launches x (ms - bound).
+             (N, M, P, K, S, G, op), here and in phases 10-12 (the table
+             is printed after phase 12, ``[shapes]``).
 8. nl      — the SSB mixed stream (SQL and NL) through a fresh tenant whose
              NL canonicalizer is ``MemoizedNL(SimulatedLLM)``, on the same
              dataset: every served table against the numpy oracle, no false
@@ -144,7 +141,48 @@ Phases, in order; any failed check raises and the script exits non-zero:
              nothing is armed and one more batch retries nothing.  Prints
              statuses, request and miss-execute p50/p95, the batches run
              shard-parallel and the wall time.
-10. profile — a fresh dataset and tenant replay the first 64 SSB requests
+10. scan    — the scan plane on the same dataset: a fresh tenant over
+             ``OlapExecutor(partitions=4, max_device_rows=1 << 20)`` (four
+             1,500,000-row partitions, each on a CUDA stream of its own and
+             streamed in two chunks, the second staged on another stream)
+             serves the SSB SQL stream (its first batch under
+             ``torch.profiler``: the staging streams' work that ran while a
+             seg_agg kernel ran, from the chrome trace), the drill stream,
+             the 6-tile dashboard, the host-mask request (kernel A on each
+             chunk) and a ``COUNT(DISTINCT)`` request (the single-partition
+             fallback).  Every table against the oracle; ``stats()`` must
+             show partitioned scans, streamed chunks and per-partition rows
+             that add up to rows x scans; kernel A and B calls recorded by
+             thread and stream: at least one batch launched on two or more
+             streams from two or more ``scan-part`` threads.  Then four new
+             tiles with ``backend.partial`` injected once: the retry
+             reaches kernel B and serves the oracle's tables.  Last, the
+             dashboard batch's peak device memory above the memory before
+             it, streamed and unpartitioned, each on a fresh mirror: the
+             streamed peak must be the lower.
+11. refresh — incremental refresh on an SSB dataset of its own (appends grow
+             it): the SSB SQL stream and the host-mask request, then
+             ``advance_snapshot(delta=...)`` with 6,000 new rows of 1998
+             (TPC-H's RF1 insert at SF1) drawn from the generator's
+             distributions: every kernel A and B launch of the delta scan
+             on 6,000 rows (recompute fallbacks on the grown table), at
+             least one entry refreshed; the stream again, every table
+             against the oracle over the appended dataset.
+12. workloads — TPC-DS at SF1's store_sales rows (2,880,404) and NYC TLC at
+             January 2023's yellow-taxi trips (3,066,766), each from the
+             port's generator: each SQL stream through a tenant at
+             ``partitions=1``; then the 63 adversarial NL queries (their
+             scores must be Table 2's 28 / 30 / 5) and 150 BIRD-like ones,
+             each through one tenant per schema with
+             ``MemoizedNL(SimulatedLLM)`` behind the balanced safety policy.
+             Every table against the oracle (no false hit); the gate's
+             counts printed.  Then ``[shapes]``: at each kernel B shape of
+             phases 7 and 10-12, on random inputs, kernel B is checked
+             against its plain version, run twice (bit-identical where its
+             slots are per thread or warp, and for MIN/MAX everywhere) and
+             timed beside its byte bound: the table, with launches by
+             phase, and launches x (ms - bound) by phase.
+13. profile — a fresh dataset and tenant replay the first 64 SSB requests
              under ``torch.profiler`` (device busy share of a cold start, the
              kernels and copies that took the most device time), and again
              under ``cProfile`` (host functions by own time); then one more
@@ -159,8 +197,10 @@ degraded count, any result with ``error`` set, or a status other than a
 hit, a miss or a bypass: the service turns a backend exception (a kernel
 that fails to launch) into such a result, not into an exception.
 
-The last three lines of standard output are the ``kernels`` JSON line, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.  Exits
+The lines of phases 10-12 and ``[shapes]`` end with the card's name and
+power limit.  The last three lines of standard output are the ``kernels``
+JSON line, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.  Exits
 non-zero without a result where CUDA is absent, or where the port's sources
 are not beside this script.
 """
@@ -1018,21 +1058,27 @@ def ssd_times(dev, gen, plen: int, cache: int, iters: int) -> dict:
     return {"ssd_scan": main}
 
 
-def fused_shape_table(counts, dev, gen, iters: int, baseline=None) -> list[dict]:
-    """Kernel B at every shape the serve phase launched it at (``counts``:
-    (N, M, P, K, S, G, op) -> launches), on random inputs of that shape:
-    checked against its plain version, two calls compared bit for bit (they
-    must be identical where the slots are per thread or warp, and for MIN/MAX
-    everywhere), its device ms (and the baseline's, in turns), the L2 cache
-    flushed before each call, and its byte bound N (M+1+P) 4 + S G M 4 +
-    bounds over the HBM rate."""
+def fused_shape_table(phases: dict, dev, gen, iters: int, baseline=None) -> list[dict]:
+    """Kernel B at every shape a phase launched it at (``phases``: phase ->
+    Counter of (N, M, P, K, S, G, op) -> launches), on random inputs of that
+    shape: checked against its plain version, two calls compared bit for
+    bit (they must be identical where the slots are per thread or warp, and
+    for MIN/MAX everywhere), its device ms (and the baseline's, in turns),
+    the L2 cache flushed before each call, and its byte bound N (M+1+P) 4 +
+    S G M 4 + bounds over the HBM rate."""
+    import collections
+
     import torch
 
     from repro_torch.kernels.seg_agg import kernel as K
     from repro_torch.kernels.seg_agg import ref as R
 
+    counts: collections.Counter = collections.Counter()
+    for c in phases.values():
+        counts.update(c)
     table = []
-    for (n, m, p, k, s, g, op), launches in sorted(counts.items(), key=lambda kv: -kv[1]):
+    for shape, launches in sorted(counts.items(), key=lambda kv: -kv[1]):
+        n, m, p, k, s, g, op = shape
         v = torch.rand(n, m, generator=gen, device=dev)
         ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
         pred = torch.randint(0, 10, (n, p), generator=gen, device=dev).float()
@@ -1044,7 +1090,9 @@ def fused_shape_table(counts, dev, gen, iters: int, baseline=None) -> list[dict]
         same = torch.equal(K.seg_agg_fused_cuda(v, ids, pred, b, g, op), got)
         if not same and (tier in K.DETERMINISTIC or op != "sum"):
             raise AssertionError(f"{what}: two calls differ ({tier} slots)")
-        row = {"shape": [n, m, p, k, s, g, op], "launches": launches, "tier": tier,
+        row = {"shape": [n, m, p, k, s, g, op], "launches": launches,
+               "by_phase": {ph: cnt[shape] for ph, cnt in phases.items() if cnt[shape]},
+               "tier": tier,
                "bit_identical": same, "max_abs_err": err,
                "bound_ms": (n * (m + 1 + p) + s * g * m + b.numel()) * 4 / HBM_BYTES_PER_S * 1e3}
         call = (lambda v, i, pr: K.seg_agg_fused_cuda(v, i, pr, b, g, op), (v, ids, pred))
@@ -1080,11 +1128,9 @@ class Oracle:
                 continue  # a bypass that executes nothing serves nothing
             if r.signature is None:
                 raise AssertionError(f"a table without a signature: {r.provenance}")
-            key = r.signature.key()
-            if key not in self.truth:
-                self.truth[key] = self.executor.execute(r.signature)
             checked += 1
-            if not r.table.equals(self.truth[key], ordered=bool(r.signature.order_by)):
+            if not r.table.equals(self.truth_of(r.signature),
+                                  ordered=bool(r.signature.order_by)):
                 if r.hit:
                     false_hits += 1
                 else:
@@ -1092,6 +1138,13 @@ class Oracle:
         if false_hits or wrong:
             raise AssertionError(f"{false_hits} false hits, {wrong} wrong tables")
         return {"tables_checked": checked, "false_hits": false_hits}
+
+    def truth_of(self, sig):
+        """The oracle's table for ``sig``, memoized by its key."""
+        key = sig.key()
+        if key not in self.truth:
+            self.truth[key] = self.executor.execute(sig)
+        return self.truth[key]
 
 
 def _statuses(results) -> dict:
@@ -1498,17 +1551,20 @@ class FusedShapes:
 
     def __enter__(self):
         import collections
+        import threading
 
         from repro_torch.kernels.seg_agg import kernel
 
         self.kernel, self.real = kernel, kernel.seg_agg_fused_cuda
         self.counts: collections.Counter = collections.Counter()
+        lock = threading.Lock()  # the scan plane launches from several threads
 
         def recording(values, ids, pred_cols, bounds, num_groups, op="sum"):
             s, p, k, _ = bounds.shape
-            for s0 in range(0, s, kernel.MAX_SIGNATURES):
-                self.counts[(values.shape[0], values.shape[1], p, k,
-                             min(kernel.MAX_SIGNATURES, s - s0), num_groups, op)] += 1
+            with lock:
+                for s0 in range(0, s, kernel.MAX_SIGNATURES):
+                    self.counts[(values.shape[0], values.shape[1], p, k,
+                                 min(kernel.MAX_SIGNATURES, s - s0), num_groups, op)] += 1
             return self.real(values, ids, pred_cols, bounds, num_groups, op)
 
         kernel.seg_agg_fused_cuda = recording
@@ -1651,11 +1707,15 @@ class ThreadLaunches:
     """Within its ``with``, which thread called kernel A
     (``kernel.seg_agg_cuda``) or kernel B (``kernel.seg_agg_fused_cuda``),
     by batch: both are wrapped for the block's duration, and the calls
-    count under the batch named by ``batch`` when they were made."""
+    count under the batch named by ``batch`` when they were made.  Each
+    call is also kept in ``detail[batch]`` as (thread, CUDA stream handle,
+    kernel, rows)."""
 
     def __enter__(self):
         import collections
         import threading
+
+        import torch
 
         from repro_torch.kernels.seg_agg import kernel
 
@@ -1664,13 +1724,17 @@ class ThreadLaunches:
                                                               "seg_agg_fused_cuda")}
         self.batch = None
         self.calls: dict = collections.defaultdict(collections.Counter)
+        self.detail: dict = collections.defaultdict(list)
         lock = threading.Lock()
 
         def wrapped(name, fn):
-            def recording(*args, **kw):
+            def recording(values, *args, **kw):
+                thread = threading.current_thread().name
+                stream = torch.cuda.current_stream(values.device).cuda_stream
                 with lock:
-                    self.calls[self.batch][(threading.current_thread().name, name)] += 1
-                return fn(*args, **kw)
+                    self.calls[self.batch][(thread, name)] += 1
+                    self.detail[self.batch].append((thread, stream, name, values.shape[0]))
+                return fn(values, *args, **kw)
             return recording
 
         for name, fn in self.real.items():
@@ -1807,6 +1871,430 @@ def service_phase(wl, oracle) -> dict:
                   "after_clear": _statuses(cleared)},
         "by_shard": [d["entries"] for d in tenant.cache.stats_by_shard()],
         "wall_s": wall}}
+
+
+# ------------------------------------------------------------------ scan
+
+
+SCAN_PARTITIONS = 4
+SCAN_CHUNK_ROWS = 1 << 20  # max_device_rows: a 1,500,000-row partition streams in two chunks
+DISTINCT = ("SELECT c_region, COUNT(DISTINCT lo_custkey) AS n FROM lineorder "
+            "JOIN customer ON lineorder.lo_custkey = customer.c_key GROUP BY c_region")
+SCAN_TILE = ("SELECT s_region, SUM(lo_supplycost) AS c, MAX(lo_quantity) AS q FROM lineorder "
+             "JOIN supplier ON lineorder.lo_suppkey = supplier.s_key "
+             "JOIN dates ON lineorder.lo_orderdate = dates.d_key "
+             "WHERE d_year = {y} GROUP BY s_region")
+
+
+def _tenant(svc, wl, backend, nl=None, name=None):
+    """A tenant registered as ``serve.build_tenant`` registers one, over
+    ``backend`` (and named ``name``, default ``serve.TENANT``)."""
+    from repro_torch.core.cache import SemanticCache
+    from repro_torch.core.safety import SafetyPolicy
+    from repro_torch.launch import serve
+
+    return svc.register_tenant(
+        name or serve.TENANT, schema=wl.schema, backend=backend, nl=nl,
+        cache=SemanticCache(wl.schema, level_mapper=wl.dataset.level_mapper()),
+        policy=SafetyPolicy.balanced(wl.spatial_ambiguous))
+
+
+def _peak_bytes(executor, sigs) -> tuple[int, list]:
+    """Device bytes allocated at the peak of ``executor.execute_batch(sigs)``
+    above what was allocated before it, and the tables.  Python's cyclic
+    garbage (executors hold their memos' eviction callbacks) is collected
+    before and the collector held off during the call: tensors of earlier
+    work freed inside the window would lower the peak below the base."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        tables = executor.execute_batch(sigs)
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    return torch.cuda.max_memory_allocated() - base, tables
+
+
+def staging_overlap(trace: str) -> dict:
+    """From a ``torch.profiler`` chrome trace: the device work on streams
+    that launched no seg_agg kernel (the scan plane's staging streams), and
+    how much of it ran while a seg_agg kernel ran on another stream."""
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "stream" in e.get("args", {})
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in events if e["cat"] == "kernel" and "seg_agg" in e["name"]]
+    scan_streams = {e["args"]["stream"] for e in kernels}
+    staged = [e for e in events if e["args"]["stream"] not in scan_streams]
+
+    def during_scan(e) -> bool:
+        return any(k["ts"] < e["ts"] + e["dur"] and e["ts"] < k["ts"] + k["dur"]
+                   for k in kernels)
+
+    overlapped = [e for e in staged if during_scan(e)]
+    copies = [e for e in staged if e["cat"] == "gpu_memcpy"]
+    return {"scan_streams": len(scan_streams),
+            "staging_streams": len({e["args"]["stream"] for e in staged}),
+            "seg_agg_kernels": len(kernels), "staging_ops": len(staged),
+            "staging_copies": len(copies), "staging_copy_mb": sum(
+                e["args"].get("bytes", 0) for e in copies) / 1e6,
+            "overlapped_ops": len(overlapped),
+            "overlapped_copies": sum(e["cat"] == "gpu_memcpy" for e in overlapped),
+            "overlapped_us": sum(e["dur"] for e in overlapped),
+            "staging_overlapped_a_scan": bool(overlapped)}
+
+
+def scan_phase(wl, oracle) -> dict:
+    """The scan plane on the card: a fresh tenant over ``OlapExecutor(ds,
+    partitions=4, max_device_rows=1 << 20)`` on the SSB dataset serves the
+    SSB SQL stream (its first batch under ``torch.profiler``), the drill
+    stream, the 6-tile dashboard, the host-mask request (kernel A on every
+    chunk) and a ``COUNT(DISTINCT)`` request (the fallback); then one batch
+    of four new tiles with ``backend.partial`` injected once.  Peak device
+    memory of the dashboard batch, streamed and unpartitioned, each on a
+    fresh mirror."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.sql_canon import SQLCanonicalizer
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.olap import scan_plane
+    from repro_torch.olap.executor import OlapExecutor
+    from repro_torch.resilience import faults
+    from repro_torch.service import CacheService
+
+    n = wl.dataset.fact.num_rows
+    svc = CacheService()
+    backend = OlapExecutor(wl.dataset, partitions=SCAN_PARTITIONS,
+                           max_device_rows=SCAN_CHUNK_ROWS, device="cuda")
+    tenant = _tenant(svc, wl, backend)
+    batches = [(name, reqs[i:i + 8]) for name, reqs in serve.sql_streams(wl).items()
+               for i in range(0, len(reqs), 8)]
+    batches += [("dashboard", [DASHBOARD.format(y=y) for y in range(1992, 1998)]),
+                ("host_mask", [HOST_MASK]), ("distinct", [DISTINCT])]
+    spec = _fire_once_spec("backend.partial")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # the tracer's start-up stays out of the window
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    results = []
+    t0 = time.perf_counter()
+    with FusedShapes() as shapes, ThreadLaunches() as threads, \
+            tempfile.TemporaryDirectory() as tmp:
+        threads.batch = 0
+        with profile(activities=acts) as prof:
+            results += serve.replay(svc, batches[0][1])
+            torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(f"{tmp}/scan.json")
+        overlap = staging_overlap(f"{tmp}/scan.json")
+        busy_ms = sum(ms for ms, _ in _device_ops(prof).values())
+        for i, (_, reqs) in enumerate(batches[1:], 1):
+            threads.batch = i
+            results += serve.replay(svc, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        # before the fault: its first attempt scans three partitions of four
+        st = backend.stats()
+
+        # one partition worker dies, then the retry
+        threads.batch = "fault"
+        retries0 = tenant.stats.retries
+        before = launch_counts()
+        with faults.scoped(spec) as armed:
+            faulted = serve.replay(svc, [SCAN_TILE.format(y=y) for y in range(1993, 1997)])
+            fired = dict(armed.counts()["fired"])
+        torch.cuda.synchronize()
+        after = launch_counts()
+    uncontained(tenant, results + faulted, "[scan]")
+    if sum(shapes.counts.values()) != after["seg_agg_fused"]:
+        raise AssertionError(f"{sum(shapes.counts.values())} kernel B shapes recorded for "
+                             f"{after['seg_agg_fused']} launches")
+    checked = oracle.check(results + faulted)
+    if fired != {"backend.partial": 1} or tenant.stats.retries - retries0 != 1 \
+            or [r.status for r in faulted] != ["miss"] * 4 \
+            or not all("retry:1" in r.provenance for r in faulted) \
+            or after["seg_agg_fused"] - before["seg_agg_fused"] < 1:
+        raise AssertionError(f"backend.partial: fired {fired}, "
+                             f"{[(r.status, r.provenance) for r in faulted]}, "
+                             f"launches {before} -> {after}")
+    if not (launches["seg_agg"] and launches["seg_agg_fused"]):
+        raise AssertionError(f"a kernel was never launched by [scan]: {launches}")
+
+    plan = scan_plane.plan_scan(n, SCAN_PARTITIONS, SCAN_CHUNK_ROWS)
+    per = st["per_partition"]
+    scans = {p["rows_scanned"] // (p["end"] - p["start"]) for p in per}
+    if not (st["partitioned_scans"] > 0 and st["streaming_chunks"] > 0
+            and st["partition_fallbacks"] > 0) or len(per) != SCAN_PARTITIONS \
+            or [len(c) for c in plan.chunks] != [2] * SCAN_PARTITIONS \
+            or [(p["start"], p["end"]) for p in per] != [(c[0][0], c[-1][1]) for c in plan.chunks] \
+            or len(scans) != 1 or sum(p["rows_scanned"] for p in per) != n * min(scans) \
+            or any(p["rows_scanned"] != (p["end"] - p["start"]) * min(scans) for p in per):
+        raise AssertionError(f"scan plane stats: {json.dumps(st)}")
+    parallel = []
+    for batch, calls in threads.detail.items():
+        part = {(th, stream) for th, stream, _, _ in calls if th.startswith("scan-part")}
+        if len({th for th, _ in part}) >= 2 and len({s for _, s in part}) >= 2:
+            parallel.append(batch)
+    if not parallel:
+        raise AssertionError("no shared scan launched on two streams from two scan-part threads")
+    rows = sorted({r for calls in threads.detail.values() for *_, r in calls})
+    per_req = [sum(r.timings_ms.values()) for r in results]
+    misses = [r.timings_ms["execute"] for r in results if r.status == "miss" and not r.deduped]
+
+    sigs = [SQLCanonicalizer(wl.schema).canonicalize(DASHBOARD.format(y=y))
+            for y in range(1992, 1998)]
+    peak = {}
+    for what, kw in (("streamed", {"partitions": SCAN_PARTITIONS,
+                                   "max_device_rows": SCAN_CHUNK_ROWS}),
+                     ("unpartitioned", {})):
+        ex = OlapExecutor(wl.dataset.slice_rows(0, n), device="cuda", **kw)
+        peak[what], tables = _peak_bytes(ex, sigs)
+        del ex
+        for sig, t in zip(sigs, tables):
+            if not t.equals(oracle.truth_of(sig)):
+                raise AssertionError(f"{what} dashboard table differs from the oracle")
+    if not 0 < peak["streamed"] < peak["unpartitioned"]:
+        raise AssertionError(f"streamed peak {peak['streamed']} bytes is not above 0 and "
+                             f"below the unpartitioned {peak['unpartitioned']}")
+    return {"launches": launches, "fused_shapes": shapes.counts, "summary": {
+        "partitions": SCAN_PARTITIONS, "max_device_rows": SCAN_CHUNK_ROWS,
+        "device_count": torch.cuda.device_count(),
+        "pinned_devices": None if backend._scan_devices() is None
+        else [str(d) for d in backend._scan_devices()],
+        "chunks": [list(map(list, c)) for c in plan.chunks],
+        "requests": len(results), "batches": len(batches), "statuses": _statuses(results),
+        "hit_rate": tenant.cache.stats.hit_rate, **checked,
+        "partitioned_scans": st["partitioned_scans"],
+        "partition_fallbacks": st["partition_fallbacks"],
+        "streaming_chunks": st["streaming_chunks"], "per_partition": per,
+        "kernel_rows": rows, "batches_on_2_streams_from_2_threads": len(parallel),
+        "streams_of_first": sorted({s for _, s, _, _ in threads.detail[parallel[0]]}),
+        "threads_of_first": sorted({t for t, _, _, _ in threads.detail[parallel[0]]}),
+        "peak_bytes": peak, "peak_ratio": peak["streamed"] / peak["unpartitioned"],
+        "first_batch": {"wall_ms": profiled_ms, "device_ms": busy_ms,
+                        "device_busy_share": busy_ms / profiled_ms, **overlap},
+        "fault": {"spec": spec, "fired": fired, "statuses": _statuses(faulted),
+                  "kernel_b_launches": after["seg_agg_fused"] - before["seg_agg_fused"]},
+        "request_ms_p50": float(np.percentile(per_req, 50)),
+        "request_ms_p95": float(np.percentile(per_req, 95)),
+        "miss_execute_ms_p50": float(np.percentile(misses, 50)),
+        "miss_execute_ms_p95": float(np.percentile(misses, 95)),
+        "wall_s": wall}}
+
+
+# --------------------------------------------------------------- refresh
+
+
+REFRESH_ROWS = 6_000  # TPC-H's RF1 insert at SF1: 1,500 orders of about 4 lines
+
+
+def ssb_delta(ds, n: int, rng, year: int = 1998) -> dict:
+    """``n`` new LINEORDER rows drawn from ``ssb.build_dataset``'s
+    distributions (any customer, supplier and part; quantity 1-50, price
+    100-10,000, discount 0-10, supply cost 40-80 % of the price), ordered on
+    days of ``year``."""
+    import numpy as np
+
+    dim = ds.dims["dates"]
+    day_keys = np.nonzero(dim.columns["d_year"].data == year)[0]
+    od = rng.choice(day_keys, size=n)
+    qty = rng.integers(1, 51, size=n)
+    price = np.round(rng.uniform(100, 10_000, size=n), 2)
+    disc = rng.integers(0, 11, size=n)
+    return {
+        "lo_orderdate": od,
+        "lo_custkey": rng.integers(0, ds.dims["customer"].num_rows, size=n),
+        "lo_suppkey": rng.integers(0, ds.dims["supplier"].num_rows, size=n),
+        "lo_partkey": rng.integers(0, ds.dims["part"].num_rows, size=n),
+        "lo_quantity": qty,
+        "lo_extendedprice": price,
+        "lo_discount": disc,
+        "lo_revenue": np.round(price * (1 - disc / 100.0), 2),
+        "lo_supplycost": np.round(price * rng.uniform(0.4, 0.8, size=n), 2),
+        "lo_date": dim.columns["d_date"].data[od],
+    }
+
+
+def refresh_phase(n_fact: int, seed: int) -> dict:
+    """Incremental refresh on the card: a tenant on an SSB dataset of its
+    own serves the SSB SQL stream and the host-mask request, then
+    ``advance_snapshot(delta=...)`` appends ``REFRESH_ROWS`` rows; the
+    delta scan's kernel launches (kernels A and B) must all be on those
+    rows, the recompute fallbacks' on the grown table; the stream again,
+    every table against the oracle over the appended dataset."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.service import CacheService
+    from repro_torch.workloads import ssb
+
+    rwl = ssb.build(n_fact=n_fact, seed=seed)
+    svc = CacheService()
+    tenant = serve.build_tenant(svc, rwl, device="cuda")
+    sqls = serve.sql_streams(rwl)["ssb_sql"] + [HOST_MASK]
+    t0 = time.perf_counter()
+    served = serve.replay(svc, sqls)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    delta = ssb_delta(rwl.dataset, REFRESH_ROWS, np.random.default_rng(seed))
+    backend = tenant.backend
+    real = backend.execute_batch
+    with FusedShapes() as shapes, ThreadLaunches() as threads:
+        def labelled(sigs, partition=None):
+            threads.batch = "recompute" if partition is None else "delta"
+            return real(sigs, partition=partition)
+
+        backend.execute_batch = labelled
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = svc.advance_snapshot(serve.TENANT, snapshot_id="rf1", delta=delta)
+            torch.cuda.synchronize()
+            refresh_ms = (time.perf_counter() - t0) * 1e3
+            launches = launch_counts()
+        finally:
+            del backend.execute_batch
+    n = rwl.dataset.fact.num_rows
+    delta_rows = {r for *_, r in threads.detail["delta"]}
+    delta_kernels = {k for _, _, k, _ in threads.detail["delta"]}
+    full_rows = {r for *_, r in threads.detail["recompute"]}
+    if rep.appended_rows != REFRESH_ROWS or rep.refreshed < 1 or delta_rows != {REFRESH_ROWS} \
+            or delta_kernels != {"seg_agg_cuda", "seg_agg_fused_cuda"} \
+            or full_rows - {n} or bool(full_rows) != (rep.recomputed > 0) \
+            or rep.delta_rows_scanned % REFRESH_ROWS:
+        raise AssertionError(f"refresh: {rep}, delta scan rows {delta_rows} kernels "
+                             f"{delta_kernels}, recompute rows {full_rows}")
+    t0 = time.perf_counter()
+    replayed = serve.replay(svc, sqls)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    uncontained(tenant, served + replayed, "[refresh]")
+    checked = Oracle(rwl).check(replayed)
+    refreshed = [r for r in replayed if r.hit and "snapshot:rf1" in r.provenance]
+    if not refreshed:
+        raise AssertionError("no refreshed entry was served after the delta")
+    return {"launches": launches, "fused_shapes": shapes.counts, "summary": {
+        "n_fact": n_fact, "appended_rows": rep.appended_rows, "report": rep.to_dict(),
+        "delta_scan_rows": sorted(delta_rows), "delta_scan_launches": len(threads.detail["delta"]),
+        "recompute_launches": len(threads.detail["recompute"]),
+        "served_statuses": _statuses(served), "replayed_statuses": _statuses(replayed),
+        "refreshed_hits_served": len(refreshed), **checked,
+        "serve_s": serve_s, "refresh_ms": refresh_ms, "replay_s": replay_s}}
+
+
+# ------------------------------------------------------------- workloads
+
+
+TPCDS_ROWS = 2_880_404  # TPC-DS SF1's store_sales rows
+TLC_ROWS = 3_066_766  # NYC TLC yellow-taxi trips, January 2023
+BIRDLIKE = 150
+
+
+def workloads_phase(ssb_wl, ssb_oracle, seed: int) -> dict:
+    """The paper's other benchmarks on the card: TPC-DS at SF1's
+    store_sales rows and NYC TLC at January 2023's yellow-taxi trips, each
+    built by the port's generator, each SQL stream through a tenant at
+    ``partitions=1``; then the adversarial set (Table 2) and a BIRD-like set
+    of ``BIRDLIKE`` NL queries, each through one tenant per schema with
+    ``MemoizedNL(SimulatedLLM)`` behind the balanced safety policy.  Every
+    table against the numpy oracle (no false hit); the gate's counts and
+    the canonicalizations' scores printed."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.nl_canon import MemoizedNL, SimulatedLLM
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.olap.executor import OlapExecutor
+    from repro_torch.service import CacheService, QueryRequest
+    from repro_torch.workloads import adversarial, birdlike, nyc_tlc, tpcds
+
+    t0 = time.perf_counter()
+    wls = {"ssb": ssb_wl, "tpcds": tpcds.build(n_fact=TPCDS_ROWS, seed=seed),
+           "nyc_tlc": nyc_tlc.build(n_fact=TLC_ROWS, seed=seed)}
+    oracles = {"ssb": ssb_oracle, "tpcds": Oracle(wls["tpcds"]),
+               "nyc_tlc": Oracle(wls["nyc_tlc"])}
+    out = {"build_s": time.perf_counter() - t0}
+    launches = collections.Counter()
+    with FusedShapes() as shapes:
+        for name in ("tpcds", "nyc_tlc"):
+            w = wls[name]
+            svc = CacheService()
+            tenant = serve.build_tenant(svc, w, device="cuda")
+            sqls = serve.sql_streams(w)[f"{name}_sql"]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            results = serve.replay(svc, sqls)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = launch_counts()
+            uncontained(tenant, results, f"[workloads] {name}")
+            if not got["seg_agg_fused"]:
+                raise AssertionError(f"[workloads] {name}: no kernel B launch: {got}")
+            launches.update(got)
+            per_req = [sum(r.timings_ms.values()) for r in results]
+            out[name] = {"n_fact": w.dataset.fact.num_rows, "requests": len(results),
+                         "statuses": _statuses(results), "hit_rate": tenant.cache.stats.hit_rate,
+                         **oracles[name].check(results), "launches": got,
+                         "backend_executions": tenant.backend.executions,
+                         "rows_scanned": tenant.backend.rows_scanned,
+                         "request_ms_p50": float(np.percentile(per_req, 50)),
+                         "request_ms_p95": float(np.percentile(per_req, 95)), "wall_s": wall}
+        for set_name, qs in (("adversarial", adversarial.build()),
+                             ("birdlike", birdlike.build(BIRDLIKE))):
+            svc = CacheService()
+            tenants = {name: _tenant(svc, w, OlapExecutor(w.dataset, device="cuda"),
+                                     nl=MemoizedNL(SimulatedLLM(w.vocab)), name=name)
+                       for name, w in wls.items()}
+            reqs = [QueryRequest(nl=q.text, tenant=q.schema) for q in qs]
+            reset_launch_counts()
+            results = []
+            for i in range(0, len(reqs), 8):
+                results += svc.submit_batch(reqs[i:i + 8])
+            torch.cuda.synchronize()
+            got = launch_counts()
+            launches.update(got)
+            checked = {"tables_checked": 0, "false_hits": 0}
+            for name, tenant in tenants.items():
+                mine = [r for q, r in zip(qs, results) if q.schema == name]
+                uncontained(tenant, mine, f"[workloads] {set_name} {name}")
+                checked["tables_checked"] += oracles[name].check(mine)["tables_checked"]
+            llms = {name: SimulatedLLM(w.vocab) for name, w in wls.items()}
+            score = adversarial.score(qs, [llms[q.schema].canonicalize(q.text, now=None)
+                                           for q in qs])
+            totals = collections.Counter()
+            for bucket in score["per_type"].values():
+                totals.update(bucket)
+            if set_name == "adversarial" and \
+                    (totals["correct"], totals["wrong"], totals["invalid"]) != (28, 30, 5):
+                raise AssertionError(f"adversarial scores {dict(totals)}, Table 2 has 28/30/5")
+            out[set_name] = {"queries": len(qs), "statuses": _statuses(results), **checked,
+                             "nl_gated": sum(t.stats.nl_gated for t in tenants.values()),
+                             "bypasses": sum(t.stats.bypasses for t in tenants.values()),
+                             "by_schema": {name: _statuses([r for q, r in zip(qs, results)
+                                                            if q.schema == name])
+                                           for name in wls},
+                             "score": dict(totals), "score_by_type": score["per_type"],
+                             "launches": got}
+    return {"launches": launches, "fused_shapes": shapes.counts, "summary": out}
 
 
 # --------------------------------------------------------------- profile
@@ -2040,17 +2528,6 @@ def main(argv=None) -> int:
     served = serve_phase(wl, oracle)
     print(f"[serve] {json.dumps(served['summary'])} launches {json.dumps(served['launches'])}")
     t0 = time.perf_counter()
-    table = fused_shape_table(served["fused_shapes"], dev, gen, args.iters, baseline)
-    for row in table:
-        print(f"[serve] seg_agg_fused shape {json.dumps(row)}")
-    gap = {k: sum(r["launches"] * (r[k] - r["bound_ms"]) for r in table)
-           for k in ("ms", "baseline_ms") if all(k in r for r in table)}
-    print(f"[serve] seg_agg_fused: {len(table)} shapes, "
-          f"{sum(r['launches'] for r in table)} launches, launches x (ms - bound) "
-          f"{json.dumps(gap)}, bit-identical repeats at "
-          f"{sum(r['bit_identical'] for r in table)} shapes, in "
-          f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     nl = nl_phase(wl, oracle)
     print(f"[nl] {json.dumps(nl['summary'])} launches {json.dumps(nl['launches'])} "
           f"in {time.perf_counter() - t0:.1f} s")
@@ -2058,6 +2535,36 @@ def main(argv=None) -> int:
     sharded = service_phase(wl, oracle)
     print(f"[service] {json.dumps(sharded['summary'])} launches "
           f"{json.dumps(sharded['launches'])} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scanned = scan_phase(wl, oracle)
+    print(f"[scan] {json.dumps(scanned['summary'])} launches "
+          f"{json.dumps(scanned['launches'])} in {time.perf_counter() - t0:.1f} s; "
+          f"card: {card}")
+    t0 = time.perf_counter()
+    refreshed = refresh_phase(args.n_fact, args.seed)
+    print(f"[refresh] {json.dumps(refreshed['summary'])} launches "
+          f"{json.dumps(refreshed['launches'])} in {time.perf_counter() - t0:.1f} s; "
+          f"card: {card}")
+    t0 = time.perf_counter()
+    others = workloads_phase(wl, oracle, args.seed)
+    print(f"[workloads] {json.dumps(others['summary'])} launches "
+          f"{json.dumps(others['launches'])} in {time.perf_counter() - t0:.1f} s; "
+          f"card: {card}")
+    t0 = time.perf_counter()
+    phases = {"serve": served["fused_shapes"], "scan": scanned["fused_shapes"],
+              "refresh": refreshed["fused_shapes"], "workloads": others["fused_shapes"]}
+    table = fused_shape_table(phases, dev, gen, args.iters, baseline)
+    for row in table:
+        print(f"[shapes] seg_agg_fused shape {json.dumps(row)}")
+    gap = {ph: {k: sum(r["by_phase"].get(ph, 0) * (r[k] - r["bound_ms"]) for r in table)
+                for k in ("ms", "baseline_ms") if all(k in r for r in table)}
+           for ph in phases}
+    print(f"[shapes] seg_agg_fused: {len(table)} shapes, "
+          f"{sum(r['launches'] for r in table)} launches "
+          f"({json.dumps({ph: sum(c.values()) for ph, c in phases.items()})}), launches x "
+          f"(ms - bound) by phase {json.dumps(gap)}, bit-identical repeats at "
+          f"{sum(r['bit_identical'] for r in table)} shapes, in "
+          f"{time.perf_counter() - t0:.1f} s; card: {card}")
     for what, run in (("", lambda: profile_sample(args.n_fact, args.seed)),
                       ("engine ", lambda: profile_engine(llm["engine"], wl)),
                       ("mamba2 engine ", lambda: profile_engine(ssm["engine"], wl))):
@@ -2067,7 +2574,10 @@ def main(argv=None) -> int:
 
     # each path's counts were zeroed just before it and read just after
     for path, counts, names in (("reduced", small["launches"], ("flash_attn", "decode_attn")),
-                                ("gemma-2b", gemma["launches"], ("flash_attn", "decode_attn"))):
+                                ("gemma-2b", gemma["launches"], ("flash_attn", "decode_attn")),
+                                ("scan", scanned["launches"], ("seg_agg", "seg_agg_fused")),
+                                ("refresh", refreshed["launches"], ("seg_agg", "seg_agg_fused")),
+                                ("workloads", others["launches"], ("seg_agg_fused",))):
         if not all(counts[n] for n in names):
             raise AssertionError(f"{path}: a kernel was never launched: {dict(counts)}")
     path_launches = {"seg_agg": served["launches"]["seg_agg"],

@@ -391,8 +391,9 @@ class DeviceDataset:
         # upload concurrently, and one thread's nested build must not keep
         # another's outermost upload out of upload_ms.  upload_ms is then a
         # sum of per-thread times, not wall time: where threads upload at
-        # once (shards > 1) their times overlap, and each includes a
-        # device-wide synchronize, so the sum can exceed the wall time
+        # once (shards > 1) their times overlap, and each waits for its
+        # stream, which on the default stream also covers the other
+        # threads' work, so the sum can exceed the wall time
         self._depth = threading.local()
 
     @property
@@ -407,9 +408,15 @@ class DeviceDataset:
         (uploaded) or a tensor (moved to the device if needed).  Integer data
         is stored as int32 and float data as float32.  Keys are
         caller-namespaced tuples, e.g. ``('aligned', 'customer.c_region')``.
-        Concurrent builders (the service's shard threads) may race on a
-        cold key; both build the same value, last write wins — benign for
-        pure uploads."""
+        Concurrent builders (the service's shard threads, the scan plane's
+        partition and staging threads) may race on a cold key; both build
+        the same value and the first one stored is kept, so a stored tensor
+        is never replaced while a kernel on another stream may read it.  On
+        CUDA the tensor is stored only after the calling thread's current
+        stream has finished making it, so a tensor found in a store is
+        complete for a reader on any stream; the wait covers that stream
+        alone, so a staging stream's uploads overlap the kernels of other
+        streams."""
         store = self._map(key)
         v = store.get(key)
         if v is None:
@@ -422,13 +429,13 @@ class DeviceDataset:
             try:
                 v = _to_tensor(build(), self.device)
                 if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                    torch.cuda.current_stream(self.device).synchronize()
             finally:
                 self._depth.n = depth
             if depth == 0:
                 with self._upload_lock:
                     self.upload_ms += (time.perf_counter() - t0) * 1e3
-            store[key] = v
+            v = store.setdefault(key, v)
         return v
 
     def drop(self, key) -> None:

@@ -26,13 +26,37 @@ independent numpy oracle; ``fused=False`` keeps the legacy per-measure path
 (one seg_agg launch per measure, host-side numpy masks/expressions).
 Post-aggregation (HAVING/ORDER BY/LIMIT), group decoding, and COUNT
 DISTINCT remain host-side — they touch only the small aggregate, never the
-fact table.  The partition-parallel scan plane and the delta-partition scan
-of ``execute_batch(partition=...)`` are not ported yet.
+fact table.
+
+* **Delta partition** — ``execute_batch(sigs, partition=(start, end))``
+  scans only fact rows [start, end) (the incremental refresh's delta) on a
+  fresh sub-executor over a row-slice view of the dataset, on this
+  executor's device, sharing its dimension uploads.
+* **Scan plane** — ``OlapExecutor(partitions=N, max_device_rows=...)``
+  activates the partition-parallel miss path: the fact table is split into
+  contiguous row-range partitions (``scan_plane.plan_scan``), each scanned by
+  a per-partition sub-executor on a thread pool, and the partial tables are
+  merged with the refresh merge algebra (``core.refresh.merge_partials``).
+  On one CUDA device each partition launches on a stream of its own (a
+  pool of ``partitions`` streams per executor and device); with several
+  devices the partitions are pinned to them in turn.  ``max_device_rows``
+  adds streaming: partitions larger than the budget are scanned as a
+  sequence of pow2-sized chunks, the next chunk's columns staged on another
+  stream while the current one scans.  ``partitions=1`` (the default) is
+  the unpartitioned oracle the merged tables are differential-tested
+  against.
+
+Streams and tensors: ``DeviceDataset.cache`` stores a tensor only after
+the stream that produced it has finished, so a tensor found in a mirror's
+store is complete for every stream; a streaming chunk's tensors are
+released only after its scan's stream has drained.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading as _threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -41,12 +65,16 @@ import torch
 from ..analysis.sanitizer import make_lock
 from ..core import sqlparse as sp
 from ..core.derivations import _extreme_at
+from ..core.refresh import merge_partials
 from ..core.signature import Signature
 from ..core.sql_canon import CanonicalizationError, SQLCanonicalizer
 from ..core.sqlparse import SQLSyntaxError, UnsupportedQuery
 from ..core.table import ResultTable, eval_predicate
 from ..kernels.seg_agg.ops import (seg_agg, seg_agg_batch_blocks,
                                    seg_agg_fused, seg_agg_masked)
+from ..obs.trace import adopt, child_span, current_ctx
+from ..resilience import faults
+from . import scan_plane
 from .columnar import Dataset, date_to_days, resolve_device
 
 MAX_DENSE_GROUPS = 1 << 20  # dense group-space cap for the segment-reduce path
@@ -54,6 +82,8 @@ MAX_DENSE_GROUPS = 1 << 20  # dense group-space cap for the segment-reduce path
 DEFAULT_MEMO_CAP = 64  # per-executor LRU bound on plan/index memo dicts
 
 _NEVER = (np.inf, -np.inf)  # pad range that matches nothing
+
+_UNSET = object()
 
 
 class _LRU:
@@ -148,23 +178,26 @@ class OlapExecutor:
         a CUDA device, the plain PyTorch versions on the CPU) or 'numpy'
         (independent oracle, touches no device).  ``fused=False`` keeps the
         legacy per-measure host path.  ``device`` defaults to CUDA; asking
-        for CUDA where there is none raises.  ``memo_cap`` bounds every
-        plan/index memo dict (LRU)."""
+        for CUDA where there is none raises.
+
+        ``partitions=N`` activates the partition-parallel scan plane (N
+        concurrent row-range scans merged with the refresh algebra);
+        ``max_device_rows`` bounds per-scan device residency and turns
+        larger partitions into streamed chunk sequences.  ``memo_cap``
+        bounds every plan/index memo dict (LRU)."""
         if impl not in ("auto", "numpy"):
             raise ValueError(f"unknown impl {impl!r}: expected 'auto' or 'numpy'")
-        if partitions != 1 or max_device_rows is not None:
-            raise NotImplementedError(
-                "the partition-parallel scan plane (partitions, "
-                "max_device_rows) is not ported yet; it comes with the "
-                "scan-plane slice")
+        if partitions < 1:
+            raise ValueError(f"partitions must be >= 1, got {partitions}")
         if memo_cap < 1:
             raise ValueError(f"memo_cap must be >= 1, got {memo_cap}")
         self.ds = dataset
         self.impl = impl
         self.fused = bool(fused) and impl != "numpy"
-        self.partitions = 1
-        self.max_device_rows = None
+        self.partitions = int(partitions)
+        self.max_device_rows = max_device_rows
         self.device = None if impl == "numpy" else resolve_device(device)
+        self._memo_cap = int(memo_cap)
         self._canon = SQLCanonicalizer(dataset.schema)
         self._level_cache: _LRU = _LRU(memo_cap)  # guarded-by: external[_LRU synchronizes internally via _LRU._lock]
         self._gids_cache: _LRU = _LRU(memo_cap, self._evict_gids)  # guarded-by: external[_LRU synchronizes internally via _LRU._lock]
@@ -173,14 +206,39 @@ class OlapExecutor:
         # function of the column)
         self._exact_cols: dict[str, bool] = {}
         self._nan_cols: dict[str, bool] = {}
-        self._ds_version = getattr(dataset, "version", 0)  # guarded-by: external[appends happen between requests, never during a scan]
+        # version only changes while the tenant's exclusive write gate is
+        # held (advance_snapshot), so _sync's clears never race a scan
+        self._ds_version = getattr(dataset, "version", 0)  # guarded-by: external[tenant ReadWriteGate.write serializes version changes]
         self.executions = 0  # guarded-by: self._count_lock
         self.rows_scanned = 0  # guarded-by: self._count_lock
         # execute_batch invocations (service miss planner)
         self.batch_calls = 0  # guarded-by: self._count_lock
         # shared-scan groups actually fused across those
         self.batch_groups = 0  # guarded-by: self._count_lock
+        # scan-plane invocations
+        self.partitioned_scans = 0  # guarded-by: self._count_lock
+        # sigs routed to single-partition scan
+        self.partition_fallbacks = 0  # guarded-by: self._count_lock
+        # chunk scans beyond the first per partition
+        self.streaming_chunks = 0  # guarded-by: self._count_lock
+        # the cluster miss planner runs shard groups on concurrent threads;
+        # bare '+=' on shared counters would drop increments
         self._count_lock = make_lock("OlapExecutor._count_lock")
+        # serializes scans on this executor when it acts as a resident
+        # per-partition sub (keeps counter deltas attributable per scan)
+        self._scan_mutex = make_lock("OlapExecutor._scan_mutex")
+        self._subs_lock = make_lock("OlapExecutor._subs_lock")
+        self._subs: dict[tuple[int, int], "OlapExecutor"] = {}  # guarded-by: self._subs_lock
+        # device -> shared dimcol store dict
+        self._dim_pools: dict = {}  # guarded-by: self._subs_lock
+        # CUDA device -> (scan streams, staging streams), one of each per
+        # partition, created once: the seg_agg kernels keep scratch per
+        # (device, stream), so streams made per call would grow it
+        self._streams: dict = {}  # guarded-by: self._subs_lock
+        self._pool_obj: Optional[ThreadPoolExecutor] = None  # guarded-by: self._subs_lock
+        self._plan_cache: Optional[scan_plane.ScanPlan] = None  # guarded-by: self._subs_lock
+        self._pstats: list[dict] = []  # guarded-by: self._count_lock
+        self._devices = _UNSET
 
     def _count(self, executions: int = 0, rows_scanned: int = 0,
                batch_calls: int = 0, batch_groups: int = 0) -> None:
@@ -218,7 +276,9 @@ class OlapExecutor:
         }
 
     def stats(self) -> dict:
-        """Executor counters and memo sizes."""
+        """Executor counters: totals, memo sizes, the device, and — when
+        the scan plane is active — per-partition rows/executions/chunk
+        accounting."""
         with self._count_lock:
             return {
                 "executions": self.executions,
@@ -227,8 +287,12 @@ class OlapExecutor:
                 "batch_groups": self.batch_groups,
                 "partitions": self.partitions,
                 "max_device_rows": self.max_device_rows,
+                "partitioned_scans": self.partitioned_scans,
+                "partition_fallbacks": self.partition_fallbacks,
+                "streaming_chunks": self.streaming_chunks,
                 "device": None if self.device is None else str(self.device),
                 "memo_sizes": self.memo_sizes(),
+                "per_partition": [dict(p) for p in self._pstats],
             }
 
     @property
@@ -253,17 +317,34 @@ class OlapExecutor:
             self._mplans.clear()
             self._exact_cols.clear()
             self._nan_cols.clear()
+            with self._subs_lock:
+                # partition layout and row slices are stale; dim pools
+                # survive (dimension tables are immutable across appends)
+                self._subs.clear()
+                self._plan_cache = None
+            with self._count_lock:
+                self._pstats = []
             self._ds_version = v
 
     # ------------------------------------------------------------------ api
     def execute(self, sig: Signature) -> ResultTable:
         self._sync()
+        if self._scan_active():
+            if scan_plane.partition_compatible(sig):
+                self._count(executions=1)
+                return self._execute_partitioned([sig])[0]
+            with self._count_lock:
+                self.partition_fallbacks += 1
         self._count(executions=1, rows_scanned=self.ds.fact.num_rows)
         if self.fused:
             return self._execute_fused(sig)
         return self._execute_host(sig)
 
-    def execute_batch(self, sigs: Sequence[Signature]) -> list[ResultTable]:
+    def execute_batch(
+        self,
+        sigs: Sequence[Signature],
+        partition: Optional[tuple[int, int]] = None,
+    ) -> list[ResultTable]:
         """Shared-scan batched execution (the dashboard-refresh scenario).
 
         Signatures are grouped by (levels, measures); each group that differs
@@ -275,11 +356,28 @@ class OlapExecutor:
         shared scan, not once per signature.  Results match ``execute`` per
         signature; COUNT DISTINCT, host-mask predicates or singleton groups
         fall back to the single-query path.
+
+        ``partition=(start, end)`` bounds the scan to that fact row range
+        (the incremental-refresh delta scan): execution is delegated to a
+        sub-executor over a row-slice view of the dataset, on this
+        executor's device, so only the delta rows are uploaded and reduced —
+        cost proportional to the delta, not the table.
         """
         sigs = list(sigs)
         if not sigs:
             return []
         self._sync()
+        if partition is not None:
+            sub = self._partition_executor(*partition)
+            out = sub.execute_batch(sigs)
+            # the sub-executor is fresh: its counters are exactly this call's
+            self._count(executions=sub.executions,
+                        rows_scanned=sub.rows_scanned,
+                        batch_calls=sub.batch_calls,
+                        batch_groups=sub.batch_groups)
+            return out
+        if self._scan_active():
+            return self._execute_batch_partitioned(sigs)
         self._count(batch_calls=1)
         out: list[Optional[ResultTable]] = [None] * len(sigs)
         if not self.fused:
@@ -323,6 +421,297 @@ class OlapExecutor:
                     None if mms is None else mms[s_i],
                     gids_np, n_groups, sparse_uniq)
         return out  # type: ignore[return-value]
+
+    def _partition_executor(self, start: int, end: int) -> "OlapExecutor":
+        """Fresh executor over fact rows [start, end), on this executor's
+        device.  Each delta partition is scanned once per refresh, so the
+        executor itself is not memoized — the tick shares the parent
+        mirror's dimension uploads and uploads only delta-sized fact
+        columns."""
+        sub = OlapExecutor(self.ds.slice_rows(start, end), impl=self.impl,
+                           fused=self.fused, device=self.device)
+        mirror = self.ds._device
+        if self.fused and mirror is not None and mirror.device == sub.device:
+            sub.dev.share_dim_arrays(mirror)
+        return sub
+
+    # ------------------------------------------------ partition-parallel scan
+    def _scan_active(self) -> bool:
+        """True when the scan plane handles full-table scans: multiple
+        partitions requested, or the table exceeds the per-scan device-row
+        budget (streaming).  Sub-executors are built with ``partitions=1``
+        and no budget, so they never re-enter this path."""
+        n = self.ds.fact.num_rows
+        if n <= 0:
+            return False
+        if self.partitions > 1:
+            return True
+        return self.max_device_rows is not None and n > self.max_device_rows
+
+    def _scan_plan(self) -> scan_plane.ScanPlan:
+        with self._subs_lock:
+            plan = self._plan_cache
+            if plan is None:
+                plan = scan_plane.plan_scan(
+                    self.ds.fact.num_rows, self.partitions,
+                    self.max_device_rows)
+                self._plan_cache = plan
+                with self._count_lock:
+                    self._pstats = [
+                        {"start": c[0][0], "end": c[-1][1], "rows_scanned": 0,
+                         "executions": 0, "batch_groups": 0, "chunks": 0}
+                        for c in plan.chunks]
+            return plan
+
+    def _scan_devices(self):
+        """CUDA devices for partition pinning — populated only when several
+        exist and the fused path runs on CUDA; a single device runs the
+        partitions unpinned, each on a stream of its own."""
+        if self._devices is _UNSET:
+            devs = None
+            if self.fused and self.device.type == "cuda" \
+                    and torch.cuda.device_count() > 1:
+                devs = [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+            self._devices = devs
+        return self._devices
+
+    def _pool(self) -> ThreadPoolExecutor:
+        with self._subs_lock:
+            if self._pool_obj is None:
+                self._pool_obj = ThreadPoolExecutor(
+                    max_workers=self.partitions,
+                    thread_name_prefix="scan-part")
+            return self._pool_obj
+
+    def _partition_streams(self, device: torch.device, p: int):
+        """Partition ``p``'s (scan stream, staging stream) on ``device``:
+        bound to the partition, not to the pool thread that runs it, so a
+        resident sub's tensors are always used on the stream that made
+        them."""
+        with self._subs_lock:
+            pair = self._streams.get(device)
+            if pair is None:
+                pair = self._streams[device] = tuple(
+                    [torch.cuda.Stream(device) for _ in range(self.partitions)]
+                    for _ in range(2))
+        return pair[0][p % self.partitions], pair[1][p % self.partitions]
+
+    def _execute_batch_partitioned(self, sigs: list) -> list:
+        """Batch entry of the scan plane: partition-compatible signatures go
+        through one partitioned scan (sharing per-partition scans exactly as
+        the plain batch shares the full-table scan), the rest fall back to
+        single-partition execution."""
+        self._count(batch_calls=1)
+        out: list[Optional[ResultTable]] = [None] * len(sigs)
+        par = [i for i, s in enumerate(sigs)
+               if scan_plane.partition_compatible(s)]
+        rest = [i for i in range(len(sigs)) if i not in set(par)]
+        if rest:
+            with self._count_lock:
+                self.partition_fallbacks += len(rest)
+            for i in rest:
+                self._count(executions=1,
+                            rows_scanned=self.ds.fact.num_rows)
+                out[i] = (self._execute_fused(sigs[i]) if self.fused
+                          else self._execute_host(sigs[i]))
+        if par:
+            self._count(executions=len(par))
+            for i, t in zip(par, self._execute_partitioned(
+                    [sigs[i] for i in par])):
+                out[i] = t
+        return out  # type: ignore[return-value]
+
+    def _execute_partitioned(self, sigs: list) -> list[ResultTable]:
+        """Partition-parallel fused scan: decompose each signature into its
+        composable partial form, scan every partition concurrently (streaming
+        chunks sequentially inside each partition), merge the per-partition
+        partial tables with the refresh algebra, finalize AVG from merged
+        SUM/COUNT, and apply post-aggregation on the merged result.  Every
+        partition job is waited for before an error is raised, so no scan of
+        a failed batch is still running when the caller retries it."""
+        plan = self._scan_plan()
+        pplans = [scan_plane.decompose(s) for s in sigs]
+        psigs = [p.partial_sig for p in pplans]
+        with self._count_lock:
+            self.partitioned_scans += 1
+        devices = self._scan_devices()
+        # capture the submitting thread's trace context so each partition
+        # worker's span hangs off the request's execute span (obs plane);
+        # None when the request is unsampled — adopt() is then a no-op
+        obs_ctx = current_ctx()
+        jobs = [
+            self._pool().submit(
+                self._scan_partition, p, chunks, psigs,
+                devices[p % len(devices)] if devices else None, obs_ctx)
+            for p, chunks in enumerate(plan.chunks)]
+        wait(jobs)
+        partials = [j.result() for j in jobs]  # [partition][sig] tables
+        out = []
+        for i, (sig, pplan) in enumerate(zip(sigs, pplans)):
+            merged = merge_partials(
+                pplan.partial_sig, [part[i] for part in partials])
+            out.append(self._post_aggregate(
+                sig, scan_plane.finalize_partials(sig, pplan, merged)))
+        return out
+
+    def _scan_partition(self, p: int, chunks, psigs, dev,
+                        obs_ctx=None) -> list[ResultTable]:
+        """One partition job: scan its chunks in order, pre-merging the
+        per-chunk partial tables (merge is associative and fold-order
+        independent, so two-level partition-then-global merging is exact).
+        ``dev`` pins the partition's uploads and launches to one of several
+        CUDA devices (None: this executor's device).  On a CUDA device the
+        job runs under the partition's own stream; on the CPU the plain
+        versions run in the pool thread."""
+        with adopt(obs_ctx), child_span(
+                "execute.partition",
+                attrs={"partition": p, "chunks": len(chunks),
+                       "sigs": len(psigs)}):
+            # chaos: one partition worker fails while its siblings succeed —
+            # the whole batch must error (a merge over missing partials would
+            # be a silent wrong answer), and the caller's retry machinery
+            # re-runs it
+            faults.fire("backend.partial")
+            target = dev or self.device
+            if target is None or target.type != "cuda":
+                return self._scan_chunks(p, chunks, psigs, dev, None)
+            scan, stage = self._partition_streams(target, p)
+            with torch.cuda.device(target), torch.cuda.stream(scan):
+                return self._scan_chunks(p, chunks, psigs, dev, stage)
+
+    def _scan_chunks(self, p: int, chunks, psigs, dev,
+                     stage_stream) -> list[ResultTable]:
+        streaming = len(chunks) > 1
+        per_sig: list[list[ResultTable]] = [[] for _ in psigs]
+        sub = self._chunk_sub(chunks[0], dev, resident=not streaming)
+        for k in range(len(chunks)):
+            stager = None
+            next_sub = None
+            if k + 1 < len(chunks):
+                # double buffer: stage chunk k+1's device tensors while
+                # chunk k scans
+                next_sub = self._chunk_sub(chunks[k + 1], dev, resident=False)
+                stager = _Stager(self._prestage, next_sub, psigs, stage_stream)
+                stager.start()
+            try:
+                with sub._scan_mutex:
+                    before = (sub.executions, sub.rows_scanned, sub.batch_groups)
+                    tables = sub.execute_batch(psigs)
+                    delta = (sub.executions - before[0],
+                             sub.rows_scanned - before[1],
+                             sub.batch_groups - before[2])
+                for i, t in enumerate(tables):
+                    per_sig[i].append(t)
+                self._note_partition(p, rows=delta[1], executions=delta[0],
+                                     groups=delta[2], chunk_no=k)
+                if streaming:
+                    self._release_chunk(sub)
+            finally:
+                if stager is not None:
+                    stager.join()
+            if stager is not None:
+                stager.raise_error()
+            if next_sub is not None:
+                sub = next_sub
+        return [tl[0] if len(tl) == 1 else merge_partials(ps, tl)
+                for ps, tl in zip(psigs, per_sig)]
+
+    def _chunk_sub(self, rng: tuple[int, int], dev,
+                   resident: bool) -> "OlapExecutor":
+        """Sub-executor over fact rows [start, end), on ``dev`` (None: this
+        executor's device).  Non-streaming partitions keep a resident sub
+        (its memos and device tensors are the warm-scan fast path);
+        streaming chunks get ephemeral subs whose device tensors are
+        released after the scan.  Dimension uploads are shared through a
+        per-device pool — dims never cross devices, but within a device every
+        chunk of every partition reuses one upload."""
+        if resident:
+            with self._subs_lock:
+                hit = self._subs.get(rng)
+            if hit is not None:
+                return hit
+        sub = OlapExecutor(self.ds.slice_rows(*rng), impl=self.impl,
+                           fused=self.fused, memo_cap=self._memo_cap,
+                           device=dev or self.device)
+        if self.fused:
+            self._share_dims(sub, dev)
+        if resident:
+            with self._subs_lock:
+                sub = self._subs.setdefault(rng, sub)
+        return sub
+
+    def _share_dims(self, sub: "OlapExecutor", dev) -> None:
+        with self._subs_lock:
+            pool = self._dim_pools.get(dev)
+            if pool is None:
+                # unpinned scans can share the parent mirror's live dimcol
+                # store; pinned devices each get their own (tensors must not
+                # cross devices)
+                pool = self.dev._dim_store if dev is None else {}
+                self._dim_pools[dev] = pool
+        mirror = sub.dev
+        for k, v in mirror._dim_store.items():
+            pool.setdefault(k, v)
+        mirror._dim_store = pool
+
+    def _release_chunk(self, sub: "OlapExecutor") -> None:
+        """Drop an ephemeral streaming chunk's device tensors (its share of
+        the dim pool survives — the pool dict is aliased, not owned).  The
+        chunk's kernels ran on this thread's current stream, which is
+        drained first: the allocator may then hand the memory to a new
+        tensor on any stream without a kernel still reading it."""
+        mirror = sub.ds._device
+        if mirror is not None:
+            if mirror.device.type == "cuda":
+                torch.cuda.current_stream(mirror.device).synchronize()
+            mirror._store.clear()
+        sub.ds._device = None
+
+    def _note_partition(self, p: int, rows: int, executions: int,
+                        groups: int, chunk_no: int) -> None:
+        with self._count_lock:
+            self.rows_scanned += rows
+            if chunk_no > 0:
+                self.streaming_chunks += 1
+            if p < len(self._pstats):
+                st = self._pstats[p]
+                st["rows_scanned"] += rows
+                st["executions"] += executions
+                st["batch_groups"] += groups
+                st["chunks"] += 1
+
+    def _prestage(self, sub: "OlapExecutor", psigs, stream) -> None:
+        """Stager thread body: force the next chunk's fact-column uploads
+        (level alignments, measure expressions, predicate columns) while the
+        current chunk scans, on ``stream`` (the partition's staging stream,
+        so they overlap the scan; None on the CPU).  ``DeviceDataset.cache``
+        finishes each upload before storing it, so the scan reads complete
+        tensors whatever its stream.  An error is kept and raised in the
+        scanning thread (``_Stager.raise_error``)."""
+        if stream is None:
+            self._stage_arrays(sub, psigs)
+            return
+        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+            self._stage_arrays(sub, psigs)
+
+    def _stage_arrays(self, sub: "OlapExecutor", psigs) -> None:
+        if not sub.fused:
+            return
+        mirror = sub.dev
+        n = sub.ds.fact.num_rows
+        mirror.cache(("ones",), lambda: np.ones(n, np.float32))
+        date_col = sub.ds.schema.fact.date_column
+        for s in psigs:
+            for lv in s.levels:
+                mirror.fact_aligned(lv)
+            for m in s.measures:
+                if m.expr != "*":
+                    sub._dev_expr(m.expr)
+            for f in s.filters:
+                mirror.fact_aligned_f32(f.col)
+            if s.time_window is not None and date_col is not None:
+                mirror.fact_aligned_f32(f"{sub.ds.fact.name}.{date_col}")
 
     def execute_raw(self, sql: str) -> Optional[ResultTable]:
         """Bypass path: out-of-scope requests run directly on the backend.
@@ -839,6 +1228,29 @@ class OlapExecutor:
         if sig.limit is not None:
             table = table.head(sig.limit)
         return table
+
+
+class _Stager(_threading.Thread):
+    """A streaming chunk's staging thread.  Where the reference's stager
+    drops its errors, this one keeps its error and ``raise_error`` raises
+    it in the scanning thread after ``join``: a device error while staging
+    must not vanish."""
+
+    def __init__(self, target, *args):
+        super().__init__(name="scan-stage", daemon=True)
+        self._call = (target, args)
+        self.error: Optional[Exception] = None
+
+    def run(self) -> None:
+        target, args = self._call
+        try:
+            target(*args)
+        except Exception as e:  # raised again by raise_error in the scanning thread
+            self.error = e
+
+    def raise_error(self) -> None:
+        if self.error is not None:
+            raise self.error
 
 
 def _pack_bounds(ranges: list[list[tuple[float, float]]]) -> np.ndarray:

@@ -298,6 +298,95 @@ def test_service_on_cuda_matches_the_cpu_and_the_oracle(cuda_device, shards):
         assert not any(shard_threads.values())
 
 
+def test_kernels_on_several_streams_at_once_match_plain(cuda_device):
+    """Kernels A and B launched from four threads at once, each on a
+    stream of its own (the scan plane's pattern), in the per-thread,
+    per-block and global slot tiers: every output equals the plain
+    version, and each stream has its own scratch."""
+    import threading
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    n = 1 << 20
+    cases = []
+    for i, g in enumerate((5, 84, 6250, 400_000)):
+        v = torch.rand(n, 2, generator=gen, device=cuda_device)
+        ids = torch.randint(0, g, (n,), generator=gen, device=cuda_device, dtype=torch.int32)
+        pred = torch.randint(0, 10, (n, 1), generator=gen, device=cuda_device).float()
+        bounds = torch.tensor([[[[0.0, 4.0]]], [[[3.0, 9.0]]]], device=cuda_device)
+        mask = (torch.rand(n, generator=gen, device=cuda_device) < 0.5).float()
+        cases.append((v, ids, pred, bounds, mask, g))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    outs: dict = {}
+    errors: list = []
+
+    def worker(i):
+        v, ids, pred, bounds, mask, g = cases[i]
+        try:
+            with torch.cuda.stream(streams[i]):
+                for _ in range(10):
+                    b = tkernel.seg_agg_fused_cuda(v, ids, pred, bounds, g, "sum")
+                    a = tkernel.seg_agg_cuda(v, ids, mask, g, "sum")
+                    mn = tkernel.seg_agg_fused_cuda(v, ids, pred, bounds, g, "min")
+                streams[i].synchronize()
+            outs[i] = (b, a, mn)
+        except Exception as e:  # re-raised below in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for i, (v, ids, pred, bounds, mask, g) in enumerate(cases):
+        b, a, mn = outs[i]
+        _close(b, tref.seg_agg_batch_ref(v, ids, pred, bounds, g, "sum"))
+        _close(a, tref.seg_agg_masked_ref(v, ids, mask, g, "sum"))
+        _close(mn, tref.seg_agg_batch_ref(v, ids, pred, bounds, g, "min"))
+    keys = {(cuda_device.index, s.cuda_stream) for s in streams}
+    assert keys <= set(tkernel._SCRATCH)
+    assert len({id(tkernel._SCRATCH[k][0]) for k in keys}) == len(streams)
+
+
+def test_scan_plane_on_cuda_matches_the_oracle(cuda_device):
+    """``OlapExecutor(partitions=4, max_device_rows=...)`` on the card:
+    every SSB intent alone and in one batch, plus the host-mask request,
+    equal to the numpy oracle; the shared scan launches kernels from two
+    or more ``scan-part`` threads on two or more streams; a delta scan
+    (``execute_batch(partition=)``) runs on the card over its rows only."""
+    ThreadLaunches = _chip_smoke().ThreadLaunches
+    wl = ssb.build(n_fact=300_000, seed=4)
+    canon = SQLCanonicalizer(wl.schema)
+    sigs = [canon.canonicalize(i.sql) for i in wl.intents] + [canon.canonicalize(HOST_MASK)]
+    oracle = OlapExecutor(wl.dataset, impl="numpy")
+    ex = OlapExecutor(wl.dataset, partitions=4, max_device_rows=1 << 16, device=cuda_device)
+    reset_launch_counts()
+    with ThreadLaunches() as threads:
+        threads.batch = "batch"
+        batched = ex.execute_batch(sigs)
+        threads.batch = "single"
+        for sig, b in zip(sigs, batched):
+            want = oracle.execute(sig)
+            assert b.equals(want, ordered=bool(sig.order_by)), sig.canonical_json()
+            assert ex.execute(sig).equals(want, ordered=bool(sig.order_by))
+        threads.batch = "delta"
+        delta = ex.execute_batch(sigs, partition=(1000, 7000))
+    part = {(th, st) for th, st, _, _ in threads.detail["batch"] if th.startswith("scan-part")}
+    assert len({th for th, _ in part}) >= 2 and len({st for _, st in part}) >= 2
+    assert {k for _, _, k, _ in threads.detail["batch"]} == {"seg_agg_cuda", "seg_agg_fused_cuda"}
+    assert {r for *_, r in threads.detail["delta"]} == {6000}
+    sliced = OlapExecutor(wl.dataset.slice_rows(1000, 7000), impl="numpy")
+    for sig, d in zip(sigs, delta):
+        assert d.equals(sliced.execute(sig), ordered=bool(sig.order_by))
+    st = ex.stats()
+    assert st["streaming_chunks"] > 0 and st["partition_fallbacks"] == 0
+    delta_rows = st["rows_scanned"] - sum(p["rows_scanned"] for p in st["per_partition"])
+    assert delta_rows > 0 and delta_rows % 6000 == 0  # the delta scan, outside the plane
+    assert launch_counts()["seg_agg"] > 0 and launch_counts()["seg_agg_fused"] > 0
+
+
 ATTN_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (4e-3, 5e-4)}  # (rtol, atol)
 
 

@@ -121,10 +121,16 @@ def test_execute_raw_and_stats(ssb_small):
 
 
 def test_scan_plane_options_not_ported(ssb_small):
+    """The scan plane's options are ported: they are checked as the
+    reference checks them (``partitions`` below 1 raises ``ValueError``),
+    and the JAX package's kernel impls are still refused."""
     ds = from_reference(ssb_small.dataset)
-    with pytest.raises(NotImplementedError):
-        OlapExecutor(ds, partitions=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        OlapExecutor(ds, max_device_rows=1000, device="cpu")
-    with pytest.raises(ValueError):
-        OlapExecutor(ds, impl="xla", device="cpu")
+    with pytest.raises(ValueError, match="partitions"):
+        OlapExecutor(ds, partitions=0, device="cpu")
+    with pytest.raises(ValueError, match="partitions"):
+        JOlapExecutor(ssb_small.dataset, partitions=0)
+    ex = OlapExecutor(ds, partitions=2, max_device_rows=1000, device="cpu")
+    assert (ex.partitions, ex.max_device_rows) == (2, 1000)
+    for impl in ("xla", "interpret", "pallas"):
+        with pytest.raises(ValueError, match="unknown impl"):
+            OlapExecutor(ds, impl=impl, device="cpu")

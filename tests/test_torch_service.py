@@ -17,10 +17,13 @@ the plain PyTorch path), one ``CacheService`` each:
   ``shard-miss`` threads at once;
 * ``advance_snapshot`` without a delta and ``invalidate``: the same
   dropped counts, then the same statuses; ``advance_snapshot(delta=...)``
-  raises ``TypeError`` in the port (its ``execute_batch`` takes no
-  partition yet) and leaves the data as it was; ``warm``;
+  on fresh datasets (the module's are shared): the same ``RefreshReport``,
+  then the same statuses and tables, each equal to the oracle over the
+  appended dataset; ``warm``;
 * ``metrics()``: the same metric names and counter values; ``health()``
-  and ``stats()`` the same keys;
+  and ``stats()`` the same keys, and the backend's ``stats()`` the same
+  values but for the port's ``device`` (and the JAX executor's XLA
+  ``rect_index`` memo, which the port does not have);
 * one seeded ``backend.error`` plan, then a breaker that opens: the same
   statuses and error kinds, every served table equal to the oracle, and
   nothing left armed;
@@ -45,6 +48,7 @@ from repro.resilience import faults as jfaults
 from repro.service import CacheService as JCacheService
 from repro.service import QueryRequest as JQueryRequest
 from repro.workloads import ssb as jssb
+from benchmarks.bench_refresh import make_delta
 from repro_torch.core import MemoizedNL, SafetyPolicy, SemanticCache, SimulatedLLM
 from repro_torch.core.cache import load_cache, save_cache
 from repro_torch.launch import serve
@@ -238,12 +242,21 @@ def test_lifecycle_matches_jax(wls, streams, oracle, shards):
     assert len(pair.tenant.cache) == len(pair.jtenant.cache) == 0
     _assert_same_state(pair)
 
-    ds = pair.tenant.backend.ds
-    rows = ds.fact.num_rows
-    delta = {name: col.data[:10] for name, col in ds.fact.columns.items()}
-    with pytest.raises(TypeError, match="partition-capable"):
-        pair.svc.advance_snapshot("ssb", "snap3", delta=delta)
-    assert ds.fact.num_rows == rows and pair.tenant.snapshot_id == "snap2"
+    # a delta grows the fact table: fresh datasets, not the module's
+    jfresh, fresh_wl = jssb.build(n_fact=N_FACT, seed=0), ssb.build(n_fact=N_FACT, seed=0)
+    fresh = Pair((jfresh, fresh_wl), shards=shards)
+    fresh.submit(forms)
+    delta = make_delta(jfresh.dataset, 500, np.random.default_rng(11))
+    jrep = fresh.jsvc.advance_snapshot("ssb", "snap3", delta=delta)
+    rep = fresh.svc.advance_snapshot("ssb", "snap3", delta=delta)
+    assert dataclasses.asdict(rep) == dataclasses.asdict(jrep)
+    assert rep.appended_rows == 500 and rep.refreshed > 0 and rep.delta_rows_scanned > 0
+    assert fresh_wl.dataset.fact.num_rows == N_FACT + 500
+    jres, res = fresh.submit(forms)
+    _assert_same_results(jres, res)
+    assert any("snapshot:snap3" in r.provenance for r in res if r.hit)
+    assert Oracle(fresh_wl).check(res) == sum(r.table is not None for r in res) > 0
+    _assert_same_state(fresh)
 
 
 def test_warm_matches_jax(wls, streams):
@@ -285,8 +298,9 @@ def test_metrics_health_and_stats_match_jax(wls, streams):
     stats, jstats = pair.svc.stats("ssb"), pair.jsvc.stats("ssb")
     backend, jbackend = stats.pop("backend"), jstats.pop("backend")
     assert _keys(stats) == _keys(jstats)
-    for name in COUNTERS:
-        assert backend[name] == jbackend[name], name
+    assert backend.pop("device") == "cpu" and set(backend) == set(jbackend)
+    jbackend["memo_sizes"].pop("rect_index")  # the XLA gather layout, not ported
+    assert backend == jbackend
     assert stats["cache"] == jstats["cache"]
     assert stats["cluster"]["by_shard"] == jstats["cluster"]["by_shard"]
 
