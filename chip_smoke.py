@@ -182,7 +182,36 @@ Phases, in order; any failed check raises and the script exits non-zero:
              slots are per thread or warp, and for MIN/MAX everywhere) and
              timed beside its byte bound: the table, with launches by
              phase, and launches x (ms - bound) by phase.
-13. profile — a fresh dataset and tenant replay the first 64 SSB requests
+13. train  — the backward of flash_attn (``flash_attn_bwd.cu``, new: no
+             Pallas kernel has one), after its forward's output is held to
+             ``mha_ref`` (``ATTN_TOL``), held to ``mha_bwd_ref`` on the inputs'
+             exact float32 values (``BWD_TOL``: float32 1e-3; bfloat16
+             rtol 1e-2, atol 2e-2), two calls bit for bit, at the training
+             shape (q (16,12,192,64), k/v (16,4,192,64)) in both dtypes, at
+             head dims 64 and 128 over the forward sweep's GQA groups and S,
+             and at every other built head dim (``HEAD_DIM_HEADS``), causal
+             and not; then timed at the training shape beside its plain
+             version, the backward of SDPA and its bound.  Then
+             canonicalizer-100m at full width and depth trained through
+             ``train_lib.train`` as examples/train_canonicalizer.py --full
+             does (SSB pairs, batch 16, sequence 192, checkpoints every 50
+             steps, in a temporary directory): after one step's backward
+             every ``wq``, ``wk`` and ``wv`` has a finite gradient and each
+             attention kernel launched 12 times; 150 steps, a restart (the
+             restored parameters equal the saved ones, ``torch.equal``),
+             150 more steps that log "resumed from step 149" and start at
+             ``batch_at(150)``; every logged loss finite, the last below the
+             first, 12 x 300 launches of each kernel; 3 more steps under
+             ``torch.profiler`` (device ms and ops per step), the step wall
+             time, the device busy share (device ms per step over the
+             unprofiled step's wall) and the peak memory.  Then the newest
+             checkpoint restored through ``launch.serve.served_model`` (the
+             launcher's restore path and tokenizer) into
+             ``ServingEngine(max_len=256)``: examples/train_canonicalizer.py's 8 held-out paraphrases
+             (parsed and exact, JSON-constrained and, as a diagnostic, not),
+             and the 8 SSB NL questions of phase 3 through ``CacheService``
+             (protocol kept, every table against the oracle, 0 false hits).
+14. profile — a fresh dataset and tenant replay the first 64 SSB requests
              under ``torch.profiler`` (device busy share of a cold start, the
              kernels and copies that took the most device time), and again
              under ``cProfile`` (host functions by own time); then one more
@@ -197,7 +226,7 @@ degraded count, any result with ``error`` set, or a status other than a
 hit, a miss or a bypass: the service turns a backend exception (a kernel
 that fails to launch) into such a result, not into an exception.
 
-The lines of phases 10-12 and ``[shapes]`` end with the card's name and
+The lines of phases 10-13 and ``[shapes]`` end with the card's name and
 power limit.  The last three lines of standard output are the ``kernels``
 JSON line, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  Exits
@@ -334,7 +363,8 @@ def _instance(mangled: str) -> str:
 
 # the kernels whose ptxas and SASS figures [build] prints: the tensor-core
 # ones and kernels A and B, one template (instance names start with these)
-BUILD_SHOWN = ("flash_attn_", "decode_", "ssd_scan_kernel", "seg_agg_tiled_kernel")
+BUILD_SHOWN = ("flash_attn_", "flash_bwd_", "decode_", "ssd_scan_kernel",
+               "seg_agg_tiled_kernel")
 
 
 def ptxas_info(log: str) -> dict:
@@ -357,7 +387,8 @@ def ptxas_info(log: str) -> dict:
     return info
 
 
-def build_info(names=("flash_attn", "decode_attn", "ssd_scan", "seg_agg")) -> dict:
+def build_info(names=("flash_attn", "flash_attn_bwd", "decode_attn", "ssd_scan",
+                      "seg_agg")) -> dict:
     """Per kernel instance of each library: registers, spill bytes and
     shared memory as ``ptxas -v`` reported them in the build log, and the
     count of HMMA (tensor-core) instructions in its SASS where
@@ -2297,6 +2328,337 @@ def workloads_phase(ssb_wl, ssb_oracle, seed: int) -> dict:
     return {"launches": launches, "fused_shapes": shapes.counts, "summary": out}
 
 
+# ----------------------------------------------------------------- train
+
+# (rtol, atol) of the backward kernel against ``mha_bwd_ref`` on the inputs'
+# exact float32 values.  float32: only the order of f32 sums differs.
+# bfloat16: the kernel does the f32 arithmetic but takes D = rowsum(dO * O)
+# from the forward's bf16 output and rounds dq, dk, dv once (2**-9
+# relative); at the training shape the plain rehearsal of that arithmetic
+# (``flash_bwd_tiled_ref``) lies 0.0066 past rtol 1e-2 on gradients up to
+# 10, and a lost tile would be off by whole units
+BWD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-2, 2e-2)}
+# examples/train_canonicalizer.py --full, the reference's production path
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 16, 192, 300, 50
+TRAIN_PROFILE_STEPS = 3  # train steps traced by torch.profiler after the run
+
+
+def _bwd_check(dev, gen, b, h, hkv, s, dh, dtype, causal, what: str) -> float:
+    """The forward kernel whose output the backward takes against
+    ``mha_ref`` (``ATTN_TOL``), then the backward kernel at the same shape
+    against ``mha_bwd_ref`` on the inputs' exact float32 values
+    (``BWD_TOL``), and a second call bit for bit the first (no atomics)."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as FR
+
+    q, do = (torch.randn(b, h, s, dh, generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(dtype) for _ in range(2))
+    o = FK.flash_attention_cuda(q, k, v, causal=causal)
+    compare(o, FR.mha_ref(*_f32(q, k, v), causal=causal), f"{what} forward",
+            *ATTN_TOL[str(dtype).removeprefix("torch.")])
+    got = FK.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    want = FR.mha_bwd_ref(*_f32(q, k, v, do), causal=causal)
+    tol = BWD_TOL[str(dtype).removeprefix("torch.")]
+    err = max(compare(g, w, f"{what} {n}", *tol) for n, g, w in zip(("dq", "dk", "dv"), got, want))
+    again = FK.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{what}: two calls differ")
+    return err
+
+
+def bwd_checks(dev, gen) -> dict:
+    """Max abs error of the backward kernel by dtype: at the training shape
+    (q (16,12,192,64), k/v (16,4,192,64)), over the forward sweep's GQA
+    groups and tile edges at head dims 64 and 128, and at every other head
+    dim at the heads of ``HEAD_DIM_HEADS``; causal and not."""
+    import torch
+
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        cases = [(TRAIN_BATCH, 12, 4, TRAIN_SEQ, 64, True)]
+        cases += [(2, 2 * g, 2, s, dh, c) for dh in (64, 128) for g in (1, 2, 3, 4, 8)
+                  for s in (1, 2, 63, 64, 65, 77, 96, 129, 512, 1000) for c in (False, True)]
+        cases += [(1 if h > 16 else 2, h, hkv, s, dh, c)
+                  for dh, (h, hkv) in HEAD_DIM_HEADS.items()
+                  for s in (1, 63, 64, 65, 129, 512) for c in (False, True)]
+        for b, h, hkv, s, dh, causal in cases:
+            errs[name] = max(errs[name], _bwd_check(
+                dev, gen, b, h, hkv, s, dh, dtype, causal,
+                f"flash_bwd {name} q ({b},{h},{s},{dh}) Hkv {hkv} causal={causal}"))
+    torch.cuda.synchronize()
+    return errs
+
+
+def _bwd_work(b: int, h: int, hkv: int, s: int, dh: int) -> dict:
+    """Bytes and operations one causal bf16 backward call needs: q, k, v, o
+    and dO read once, dq, dk and dv written once; the logits recomputed and
+    the four gradient products, each 2 Dh per valid (causal) pair."""
+    return {"bytes": 2 * (4 * b * h * s * dh + 4 * b * hkv * s * dh),
+            "ops": 10 * b * h * (s * (s + 1) // 2) * dh}
+
+
+def bwd_times(dev, gen, iters: int) -> dict:
+    """The bf16 backward kernel at the training shape: checked, then kernel,
+    plain version and the backward of SDPA (``torch.autograd.grad`` of its
+    output, the forward run before the timing) timed, with the bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as FR
+
+    b, h, hkv, s, dh = TRAIN_BATCH, 12, 4, TRAIN_SEQ, 64
+    bf = torch.bfloat16
+    q, do = (torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf) for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(bf) for _ in range(2))
+    o = FK.flash_attention_cuda(q, k, v)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = _sdpa_prefill(*leaves)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    err = _bwd_check(dev, gen, b, h, hkv, s, dh, bf, True, "flash_bwd main path")
+    return with_bound({
+        "shape": f"q ({b},{h},{s},{dh}) k/v ({b},{hkv},{s},{dh}) bf16 causal",
+        "max_abs_err": err,
+        **timed((FK.flash_attention_bwd_cuda, (q, k, v, o, do)),
+                (FR.mha_bwd_ref, (q, k, v, do)), (sdpa_bwd, ()), iters),
+        **_bwd_work(b, h, hkv, s, dh)}, BF16_OPS_PER_S)
+
+
+class RecordingBatches:
+    """A ``BatchIterator`` that records the steps asked of it and the first
+    batch it gave."""
+
+    def __init__(self, inner):
+        self.inner, self.steps, self.first = inner, [], None
+
+    def batch_at(self, step: int) -> dict:
+        out = self.inner.batch_at(step)
+        if self.first is None:
+            self.first = out
+        self.steps.append(step)
+        return out
+
+
+def _held_out(wl, engine) -> dict:
+    """examples/train_canonicalizer.py's held-out evaluation: the last of 40
+    paraphrases (seed 777 + i) of each of the first 8 intents, one at a
+    time (as the example asks), through a ``CanonicalizerService``
+    (JSON-constrained decoding): parseable signatures and exact intent
+    matches; and, as a diagnostic, the same prompts decoded greedily
+    without the constraint and parsed the same way."""
+    import json as _json
+
+    from repro_torch.core.signature import signature_from_json
+    from repro_torch.core.sql_canon import SQLCanonicalizer
+    from repro_torch.serving.engine import CanonicalizerService
+    from repro_torch.workloads.paraphrase import gen_paraphrases
+
+    canon = SQLCanonicalizer(wl.schema)
+    svc = CanonicalizerService(engine, wl.schema.name)
+    counts = {"constrained": [0, 0], "unconstrained": [0, 0]}
+    first = {}
+    for i, intent in enumerate(wl.intents[:8]):
+        gold = canon.canonicalize(intent.sql).key()
+        text = gen_paraphrases(intent, n=40, seed=777 + i)[-1]
+        r = svc.canonicalize(text)
+        if (r.signature is None) != (r.error is not None):
+            raise AssertionError(f"NLResult breaks the protocol: {r}")
+        g = engine.generate([f"question: {text}\nsignature: "],
+                            max_new_tokens=MAX_NEW_TOKENS, constrained=False)[0]
+        raw = engine.tok.decode(g["tokens"])  # specials dropped
+        try:
+            obj = _json.loads(raw)
+            obj.setdefault("schema", wl.schema.name)
+            sig = signature_from_json(obj)
+        except Exception:  # noqa: BLE001 - malformed output counts as unparsed
+            sig = None
+        for how, s in (("constrained", r.signature), ("unconstrained", sig)):
+            counts[how][0] += s is not None
+            counts[how][1] += s is not None and s.key() == gold
+        first = first or {"constrained": r.raw_json[:80], "unconstrained": raw[:80]}
+    return {"questions": 8, **{k: {"parsed": v[0], "exact": v[1]} for k, v in counts.items()},
+            "first_answers": first}
+
+
+def train_phase(wl, oracle, seed: int, dev, gen, iters: int) -> dict:
+    """[train]: the backward kernel's checks and times, then canonicalizer-100m
+    trained at full width and depth through ``train_lib.train`` on SSB
+    pairs (batch 16, sequence 192), 150 steps and, after a restart, 150
+    more that resume from the checkpoint of step 149; then the checkpoint
+    served through ``launch.serve.served_model``, the launcher's restore
+    path and tokenizer."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get
+    from repro_torch.core.nl_canon import MemoizedNL
+    from repro_torch.core.sql_canon import SQLCanonicalizer
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.convert import params_to_jax
+    from repro_torch.serving.engine import CanonicalizerService, ServingEngine
+    from repro_torch.training.checkpoint import flatten_with_paths
+    from repro_torch.training.data import BatchIterator, build_pairs
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.tokenizer import build_tokenizer
+    from repro_torch.training.train_lib import (TrainConfig, loss_and_grads,
+                                                make_train_step, restore_train_state,
+                                                train)
+    from repro_torch.workloads import ssb
+
+    t0 = time.perf_counter()
+    sweep = bwd_checks(dev, gen)
+    times = bwd_times(dev, gen, iters)
+    checks_s = time.perf_counter() - t0
+
+    cfg = get("canonicalizer-100m")
+    small = ssb.build(n_fact=2000, seed=seed)  # the pairs and the tokenizer need no rows
+    tok = build_tokenizer([small])
+    batches = BatchIterator(build_pairs([small], paraphrases_per_intent=24), tok,
+                            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    params = tt.init_params(cfg, seed, device="cuda")
+    n_params = sum(t.numel() for _, t in flatten_with_paths(params_to_jax(cfg, params)))
+
+    # after a first step's backward every attention projection has a gradient
+    reset_launch_counts()
+    loss0, grads = loss_and_grads(cfg, params, batches.batch_at(0))
+    per_step = launch_counts()
+    for i, lg in enumerate(grads["layers"]):
+        for name in ("wq", "wk", "wv"):
+            g = lg[name]
+            if g is None or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"layer {i} {name}: gradient missing or not finite")
+    if (per_step["flash_attn"], per_step["flash_attn_bwd"]) != (cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"one step launched {dict(per_step)}")
+    del grads
+
+    half = TRAIN_STEPS // 2
+    extra = {"arch": cfg.name, "reduced": False, "tokenizer_workloads": ["ssb"]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        def tcfg(steps):
+            return TrainConfig(steps=steps, ckpt_dir=ck, ckpt_every=TRAIN_CKPT_EVERY,
+                               ckpt_keep=2, log_every=10)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()  # earlier phases' engines and mirrors
+        reset_launch_counts()
+        logs: list[str] = []
+        t1 = time.perf_counter()
+        first = train(cfg, tcfg(half), batches, params=params, log=logs.append, extra=extra)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        # the restart: the state the second run resumes from is the saved one
+        restored = restore_train_state(cfg, ck, first["params"],
+                                       init_opt_state(first["params"]))
+        if restored is None or restored[2] != half - 1:
+            raise AssertionError(f"no checkpoint of step {half - 1} to resume from")
+        for (name, a), (_, b) in zip(flatten_with_paths(params_to_jax(cfg, restored[0])),
+                                     flatten_with_paths(params_to_jax(cfg, first["params"]))):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"restored {name} differs from the saved one")
+        del restored
+        rec = RecordingBatches(batches)
+        resumed: list[str] = []
+        t1 = time.perf_counter()
+        second = train(cfg, tcfg(TRAIN_STEPS), rec, params=tt.init_params(cfg, seed + 1),
+                       log=resumed.append, extra=extra)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t1
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not any(f"resumed from step {half - 1}" in m for m in resumed):
+            raise AssertionError(f"the second run did not resume from step {half - 1}: "
+                                 f"{resumed[:2]}")
+        want = batches.batch_at(half)
+        if rec.steps[0] != half or not all(np.array_equal(rec.first[k], want[k])
+                                           for k in want):
+            raise AssertionError(f"the resumed run's first batch is not batch_at({half})")
+        history = first["history"] + second["history"]
+        losses = [h["loss"] for h in history]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"losses {losses}")
+        want_launches = cfg.n_layers * TRAIN_STEPS
+        if (launches["flash_attn"], launches["flash_attn_bwd"]) != (want_launches,) * 2:
+            raise AssertionError(f"{TRAIN_STEPS} steps launched {dict(launches)}")
+
+        # device time per step under torch.profiler: a few more steps
+        step_fn = make_train_step(cfg, tcfg(TRAIN_STEPS))
+        p, o = second["params"], second["opt_state"]
+        p, o = step_fn(p, o, batches.batch_at(0))[2:4]  # warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(TRAIN_PROFILE_STEPS):
+                p, o = step_fn(p, o, batches.batch_at(1 + i))[2:4]
+            torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+        ops = _device_ops(prof)
+        by_name = {k: v[0] for k, v in ops.items()}
+        device_ms = sum(by_name.values())
+        del p, o, first, step_fn
+
+        # serving the checkpoint: launch.serve's restore path and tokenizer
+        scfg, sp, stok, step = serve.served_model(cfg, wl, ck, device="cuda")
+        if sp is None or step != TRAIN_STEPS - 1:
+            raise AssertionError(f"serve restored step {step}, not {TRAIN_STEPS - 1}")
+        if stok.vocab != tok.vocab or scfg != cfg:
+            raise AssertionError("the served tokenizer or config differs from the trained one")
+    engine = ServingEngine(scfg, sp, stok, max_len=256)
+    held_out = _held_out(small, engine)
+    nl = MemoizedNL(CanonicalizerService(engine, wl.schema.name))
+    texts = _nl_texts(wl, NL_BATCH)
+    run = _nl_batch(nl, wl, oracle, texts)  # the counts are read from the training run
+    canon = SQLCanonicalizer(wl.schema)
+    intent_of = {q.text: q.intent_id for q in wl.queries() if q.kind == "nl"}
+    gold = {it.id: canon.canonicalize(it.sql).key() for it in wl.intents}
+    answers = [r for (text, _), r in nl._memo.items() if text in texts]
+    s = run["summary"]
+    served = {"held_out": held_out, "ssb_nl": {
+        "requests": s["requests"], "statuses": s["statuses"], "nl_gated": s["nl_gated"],
+        "false_hits": s["false_hits"], "tables_checked": s["tables_checked"],
+        "parsed": sum(r.signature is not None for r in answers),
+        "exact": sum(r.signature is not None and r.signature.key() == gold[intent_of[t]]
+                     for (t, _), r in nl._memo.items() if t in texts),
+        "decode_steps": s["decode_steps"]}}
+    return {"launches": launches, "bwd": {"sweep": sweep, "times": times},
+            "summary": {
+                "config": {k: getattr(cfg, k) for k in (
+                    "n_layers", "d_model", "n_heads", "kv_heads", "head_dim", "d_ff",
+                    "vocab")},
+                "params": n_params, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+                "steps": TRAIN_STEPS, "pairs": len(batches.pairs),
+                "bwd_checks_s": checks_s, "first_loss": float(loss0),
+                "losses": [(h["step"], round(h["loss"], 4)) for h in history],
+                "resumed": resumed[0],
+                "launches_per_step": {"flash_attn": per_step["flash_attn"],
+                                      "flash_attn_bwd": per_step["flash_attn_bwd"]},
+                "step_wall_ms": (first_s + second_s) / TRAIN_STEPS * 1e3,
+                "train_wall_s": {"first": first_s, "second": second_s},
+                "profiled_steps": TRAIN_PROFILE_STEPS,
+                "profiled_wall_ms_per_step": prof_wall / TRAIN_PROFILE_STEPS,
+                "device_ms_per_step": device_ms / TRAIN_PROFILE_STEPS if by_name else None,
+                "device_ops_per_step": sum(n for _, n in ops.values()) / TRAIN_PROFILE_STEPS,
+                # device time per step over the unprofiled step's wall; the
+                # profiler's own host cost (CPU activity on) inflates its wall
+                "device_busy_share": (device_ms / TRAIN_PROFILE_STEPS * TRAIN_STEPS
+                                      / ((first_s + second_s) * 1e3)) if by_name else None,
+                "device_busy_share_under_profiler": (device_ms / prof_wall
+                                                     if by_name else None),
+                "top_device_ms": _top(by_name, 8),
+                "peak_memory_allocated": peak, "peak_above_resident": peak - resident,
+                "served": served}}
+
+
 # --------------------------------------------------------------- profile
 
 
@@ -2419,6 +2781,10 @@ SOURCES = {
                     "src/repro/kernels/decode_attn/kernel.py:24 _decode_kernel"),
     "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:28 _ssd_kernel"),
+    "flash_attn_bwd": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu",
+                       "none: no Pallas kernel has a backward (jax.grad cannot pass "
+                       "_flash_kernel); JAX differentiates mha_ref, "
+                       "src/repro/kernels/flash_attn/ref.py:7"),
 }
 
 
@@ -2565,6 +2931,20 @@ def main(argv=None) -> int:
           f"(ms - bound) by phase {json.dumps(gap)}, bit-identical repeats at "
           f"{sum(r['bit_identical'] for r in table)} shapes, in "
           f"{time.perf_counter() - t0:.1f} s; card: {card}")
+    t0 = time.perf_counter()
+    trained = train_phase(wl, oracle, args.seed, dev, gen, 10 * args.iters)
+    bwd = trained["bwd"]
+    errs["flash_attn_bwd"] = max(*bwd["sweep"].values(), bwd["times"]["max_abs_err"])
+    times["flash_attn_bwd"] = bwd["times"]
+    t = bwd["times"]
+    print(f"[train] flash_attn_bwd {t['shape']}: device ms per call: kernel {t['ms']:.4f}, "
+          f"plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}; bound "
+          f"{t['bound_ms']:.5f} ({t['bound_by']}); max abs err by dtype over the sweep "
+          f"{json.dumps(bwd['sweep'])}, at the main path's shape {t['max_abs_err']:.3g}; "
+          f"card: {card}")
+    print(f"[train] {json.dumps(trained['summary'])} launches "
+          f"{json.dumps(trained['launches'])} in {time.perf_counter() - t0:.1f} s; "
+          f"card: {card}")
     for what, run in (("", lambda: profile_sample(args.n_fact, args.seed)),
                       ("engine ", lambda: profile_engine(llm["engine"], wl)),
                       ("mamba2 engine ", lambda: profile_engine(ssm["engine"], wl))):
@@ -2573,7 +2953,8 @@ def main(argv=None) -> int:
     print(f"[total] {time.perf_counter() - t_all:.1f} s")
 
     # each path's counts were zeroed just before it and read just after
-    for path, counts, names in (("reduced", small["launches"], ("flash_attn", "decode_attn")),
+    for path, counts, names in (("train", trained["launches"], ("flash_attn", "flash_attn_bwd")),
+                                ("reduced", small["launches"], ("flash_attn", "decode_attn")),
                                 ("gemma-2b", gemma["launches"], ("flash_attn", "decode_attn")),
                                 ("scan", scanned["launches"], ("seg_agg", "seg_agg_fused")),
                                 ("refresh", refreshed["launches"], ("seg_agg", "seg_agg_fused")),
@@ -2584,7 +2965,8 @@ def main(argv=None) -> int:
                      "seg_agg_fused": served["launches"]["seg_agg_fused"],
                      "flash_attn": llm["launches"]["flash_attn"],
                      "decode_attn": llm["launches"]["decode_attn"],
-                     "ssd_scan": ssm["launches"]["ssd_scan"]}
+                     "ssd_scan": ssm["launches"]["ssd_scan"],
+                     "flash_attn_bwd": trained["launches"]["flash_attn_bwd"]}
     if not all(path_launches.values()):
         raise AssertionError(f"a kernel was never launched on its path: {path_launches}")
     kernels = [{

@@ -8,7 +8,7 @@ Usage::
 
 Default paths are the concurrency-bearing packages
 (``src/repro_torch/{cluster,service,olap,core,storage,resilience,obs,
-kernels,serving}``).  Findings matching the
+kernels,serving,training}``; training for its async checkpoint writers).  Findings matching the
 checked-in baseline (``src/repro_torch/analysis/baseline.json``, keyed by
 ``(rule, file, identifier)`` — line-number independent) are reported but
 do not fail the run; ``--strict`` exits non-zero on any *new* finding.
@@ -26,7 +26,7 @@ from . import immutability, lockcheck, lockorder
 from .findings import load_baseline, split_baseline, write_report
 
 DEFAULT_PACKAGES = ("cluster", "service", "olap", "core", "storage",
-                    "resilience", "obs", "kernels", "serving")
+                    "resilience", "obs", "kernels", "serving", "training")
 
 
 def _repo_root() -> str:

@@ -1,6 +1,7 @@
 """What the ctypes-bound kernel wrappers share: the one-time declaration of
-a library's C ABI, dispatch by device, input checks, the launch-error
-check, and the one registry of kernel launches."""
+a library's C ABI, dispatch by device, the refusal of gradients a kernel
+has no backward for, input checks, the launch-error check, and the one
+registry of kernel launches."""
 from __future__ import annotations
 
 import collections
@@ -61,6 +62,20 @@ def on_cuda(what: str, *tensors) -> bool:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{what}: unsupported device {dev}")
     return dev.type == "cuda"
+
+
+def refuse_grad(what: str, item: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` where grad is enabled and a CUDA tensor
+    among ``tensors`` requires it: a ctypes launch into a new tensor would
+    cut the autograd graph without a word, and the kernel of ``what`` has
+    no backward yet (``item``: the ROADMAP.md item that brings one)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad and t.device.type == "cuda"
+            for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel has no backward, and a launch would cut the "
+            f"autograd graph (ROADMAP.md, {item}); run it under torch.no_grad() or "
+            f"torch.inference_mode(), or on CPU tensors")
 
 
 def check_tensor(name: str, t, dtypes, ndim: int, device) -> None:

@@ -34,13 +34,15 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"  # <checkout>/build/kernels
 
 # the head dims the attention kernels are built for: those of the
 # reference's registry (16 in every reduced config, 64, 112, 128, 192, 256)
-# and of its kernel tests (32); HEAD_DIMS in flash_attn.cu and decode_attn.cu
+# and of its kernel tests (32); HEAD_DIMS in flash_attn.cu, flash_attn_bwd.cu
+# and decode_attn.cu
 ATTN_HEAD_DIMS = (16, 32, 64, 112, 128, 192, 256)
 
 # library name -> its CUDA sources
 SOURCES: dict[str, tuple[Path, ...]] = {
     "seg_agg": (_PKG / "seg_agg" / "csrc" / "seg_agg.cu",),
     "flash_attn": (_PKG / "flash_attn" / "csrc" / "flash_attn.cu",),
+    "flash_attn_bwd": (_PKG / "flash_attn" / "csrc" / "flash_attn_bwd.cu",),
     "decode_attn": (_PKG / "decode_attn" / "csrc" / "decode_attn.cu",),
     "ssd_scan": (_PKG / "ssd_scan" / "csrc" / "ssd_scan.cu",),
 }
@@ -50,6 +52,7 @@ SOURCES: dict[str, tuple[Path, ...]] = {
 _PER_HEAD_DIM = ((), *((f"-DHEAD_DIM={dh}",) for dh in ATTN_HEAD_DIMS))
 DEFINES: dict[str, tuple[tuple[str, ...], ...]] = {
     "flash_attn": _PER_HEAD_DIM,
+    "flash_attn_bwd": _PER_HEAD_DIM,
     "decode_attn": _PER_HEAD_DIM,
 }
 

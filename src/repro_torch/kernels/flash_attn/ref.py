@@ -7,7 +7,9 @@ kernel is held against it on the card.  ``flash_tiled_ref`` repeats the
 CUDA kernel's own arithmetic tile by tile (``tiled_attention``, which the
 bf16 decode kernel shares), so that the CPU tests can hold that arithmetic
 to ``mha_ref`` and to the Pallas kernel; nothing on the serving path calls
-it."""
+it.  ``mha_bwd_ref`` is the gradient of ``mha_ref``, written out: the
+plain version of the backward kernel (``csrc/flash_attn_bwd.cu``), which
+``ops.FlashAttention`` launches on the card."""
 from __future__ import annotations
 
 import math
@@ -35,6 +37,39 @@ def mha_ref(q, k, v, causal: bool = True, scale: float | None = None):
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def mha_bwd_ref(q, k, v, do, causal: bool = True, scale: float | None = None):
+    """The gradient of ``mha_ref`` at (q, k, v) for the output gradient
+    ``do``: (dq, dk, dv) in the inputs' dtypes.  P is recomputed in f32,
+    dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dO * O)), dQ = scale
+    dS K, dK = dS^T (scale q); dK and dV sum over each KV head's group of
+    query heads.  All in f32 and cast once, as autograd of ``mha_ref``'s
+    f32 arithmetic and final cast gives."""
+    b, h, s, dh = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    scale = scale if scale is not None else dh ** -0.5
+    qf = q.to(torch.float32) * scale
+    kf = k.to(torch.float32).repeat_interleave(group, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(group, dim=1)
+    dof = do.to(torch.float32)
+    logits = qf @ kf.transpose(-1, -2)
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = p @ vf
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * o).sum(dim=-1, keepdim=True))
+    dq = (ds @ kf) * scale
+    dk = ds.transpose(-1, -2) @ qf
+
+    def per_kv_head(t):
+        return t.reshape(b, hkv, group, s, dh).sum(dim=2)
+
+    return dq.to(q.dtype), per_kv_head(dk).to(k.dtype), per_kv_head(dv).to(v.dtype)
 
 
 def flash_tiled_ref(q, k, v, causal: bool = True, scale: float | None = None,
@@ -92,3 +127,45 @@ def tiled_attention(q, k, v, kmax, scale: float | None = None, block_k: int = 64
         acc = acc * alpha + pv
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def flash_bwd_tiled_ref(q, k, v, o, do, causal: bool = True, scale: float | None = None,
+                        block: int | None = None):
+    """``mha_bwd_ref``'s function with the arithmetic of ``csrc/
+    flash_attn_bwd.cu``: every value widened to f32, q scaled before the
+    products; each row's logsumexp by an online max and sum over tiles of
+    ``block`` keys (64 up to head dim 128, else 32, as the kernel tiles);
+    D = rowsum(dO * O) from the forward's output ``o`` as given (rounded
+    to its dtype); P = exp(s - lse); dK, dV summed over the group and the
+    query tiles in f32; one rounding to the inputs' dtype."""
+    b, h, s, dh = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    scale = scale if scale is not None else dh ** -0.5
+    block = block or (32 if dh > 128 else 64)
+    qf = q.to(torch.float32) * scale
+    kf = k.to(torch.float32).repeat_interleave(group, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(group, dim=1)
+    dof = do.to(torch.float32)
+    rows = torch.arange(s, device=q.device)[:, None]
+    m = torch.full((b, h, s, 1), -1e30, device=q.device)
+    l = torch.zeros((b, h, s, 1), device=q.device)
+    for t0 in range(0, s, block):
+        logits = qf @ kf[:, :, t0:t0 + block].transpose(-1, -2)
+        cols = t0 + torch.arange(logits.shape[-1], device=q.device)
+        if causal:
+            logits = logits.masked_fill(cols > rows, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(logits - m_new).sum(dim=-1, keepdim=True)
+        m = m_new
+    lse = m + torch.log(l)
+    d = (dof * o.to(torch.float32)).sum(dim=-1, keepdim=True)
+    logits = qf @ kf.transpose(-1, -2)
+    p = torch.exp(logits - lse)
+    if causal:
+        p = p.masked_fill(torch.arange(s, device=q.device) > rows, 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - d)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf).reshape(b, hkv, group, s, dh).sum(dim=2)
+    dv = (p.transpose(-1, -2) @ dof).reshape(b, hkv, group, s, dh).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

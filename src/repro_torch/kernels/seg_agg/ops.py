@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ...analysis.sanitizer import make_lock
+from ..binding import refuse_grad
 from . import kernel, ref
 
 # the service's shard threads dispatch concurrently
@@ -52,13 +53,15 @@ def _record_launch() -> None:
 
 def _on_cuda(*tensors) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises on mixed or
-    other devices."""
+    other devices, and on CUDA tensors that require grad (the kernels have
+    no backward)."""
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"seg_agg: tensors on {dev} and {t.device}")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"seg_agg: unsupported device {dev}")
+    refuse_grad("seg_agg", "Queue 3, kernel wrappers that cut the autograd graph", *tensors)
     return dev.type == "cuda"
 
 

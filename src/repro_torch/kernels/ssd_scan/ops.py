@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ..binding import on_cuda
+from ..binding import on_cuda, refuse_grad
 from . import kernel, ref
 
 
@@ -16,6 +16,8 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128, return_state: bool = False):
     state (B, H, P, N) float32.  ``chunk`` is the plain version's chunk
     length; the kernel chunks by its own."""
     if on_cuda("ssd_scan", x, dt, A, Bm, Cm):
+        refuse_grad("ssd_scan", "Queue 1 item 1, Mamba2 training on the card: an "
+                    "ssd_scan backward kernel", x, dt, A, Bm, Cm)
         f32 = torch.float32
         return kernel.ssd_scan_cuda(
             x.contiguous(), dt.to(f32).contiguous(), A.to(f32).contiguous(),

@@ -9,20 +9,33 @@ semantic cache with the dataset's level mapper (so roll-ups can hit) and at
 most ``--capacity`` entries, and an NL canonicalizer: the canonicalizer LLM
 (``--arch``: any ported family, default ``canonicalizer-100m``, or
 ``mamba2-780m``; ``--reduced`` for the tiny same-family config) served by
-:class:`ServingEngine` with weights initialised from ``--seed``, or with
+:class:`ServingEngine` with weights initialised from ``--seed`` or
+restored from a training checkpoint (``--ckpt-dir``), or with
 ``--simulated-llm`` the calibrated :class:`SimulatedLLM` (no model
 inference).  NL requests pass the balanced safety policy.  It then replays
 (``submit_batch``) the workload's mixed stream (its intents x 21 SQL
 variants + 10 NL paraphrases each, first ``--queries``) and, for SSB, the
 hierarchical drill stream, in batches of ``--batch``, and reports statuses,
 hit rate, NL gating, backend executions, rows scanned and kernel launches.
-The repo holds no trained checkpoint: with initialised weights the LLM's
-answers are malformed JSON and its NL requests bypass the cache.
+With initialised weights the LLM's answers are malformed JSON and its NL
+requests bypass the cache; ``launch.train`` (or the JAX package's
+``train``) writes the checkpoints that ``--ckpt-dir`` reads.
+
+``--ckpt-dir`` departs from the reference's launcher on purpose: that one
+asks ``restore_latest`` for a tree of parameters alone, which never
+matches a training checkpoint (it also holds the optimizer's ``o/...``
+leaves), and serves initialised weights without a word.  Here the
+``p/...`` leaves of the newest valid checkpoint whose parameter names fit
+the arch are restored (``restore_latest(..., subtree="p")``), the
+tokenizer is built over the checkpoint's ``extra["tokenizer_workloads"]``
+where it has them (``launch.train`` writes them; else over the served
+workload), and the restored step is printed.
 
 Usage:
     python -m repro_torch.launch.serve --n-fact 6000000 --queries 403 --batch 8
     python -m repro_torch.launch.serve --workload tpcds --n-fact 2880404 --simulated-llm
     python -m repro_torch.launch.serve --device cpu --reduced
+    python -m repro_torch.launch.serve --ckpt-dir ckpts/canon --queries 62
     python -m repro_torch.launch.serve --arch mamba2-780m --queries 62
     python -m repro_torch.launch.serve --n-fact 20000 --device cpu --simulated-llm
 """
@@ -60,22 +73,68 @@ def build_tenant(svc: CacheService, wl, device="cuda", nl=None,
         policy=SafetyPolicy.balanced(wl.spatial_ambiguous), shards=shards)
 
 
-def llm_canonicalizer(wl, arch: str = "canonicalizer-100m", reduced: bool = False,
-                      seed: int = 0, device="cuda"):
-    """``MemoizedNL(CanonicalizerService(engine))`` over ``arch`` with
-    weights initialised from ``seed``.  A reduced config's head is widened
-    to the workload tokenizer's vocabulary (the reduced head is narrower
-    than the tokenizer, which constrained decoding cannot mask)."""
-    from ..configs.registry import get, reduced as reduced_cfg
-    from ..serving.engine import CanonicalizerService, ServingEngine
+def restore_params(cfg, ckpt_dir: str, device="cuda"):
+    """The ``p/...`` leaves of the newest valid checkpoint in ``ckpt_dir``
+    whose parameter names are ``cfg``'s, in the port's layout on
+    ``device``: (params, step, extra), or (None, -1, {}) where no
+    checkpoint fits."""
+    from ..models.convert import params_from_jax
+    from ..training.checkpoint import restore_latest
+
+    shapes = cfg.param_shapes()
+    names = {k: ({n: None for n in v[0]} if k == "layers" else None)
+             for k, v in shapes.items()}
+    tree, step, extra = restore_latest(ckpt_dir, names, subtree="p")
+    if tree is None:
+        return None, -1, {}
+    return params_from_jax(cfg, tree, device=device), step, extra
+
+
+def served_model(base, wl, ckpt_dir: str | None = None, device="cuda"):
+    """What the canonicalizer over ``base`` serves for workload ``wl``:
+    (cfg, params, tokenizer, step).  With ``ckpt_dir``, params and step
+    come from the newest checkpoint there that fits ``base``
+    (``restore_params``) and the tokenizer is built over the checkpoint's
+    ``extra["tokenizer_workloads"]`` where it names them (token ids are the
+    sorted words, so the workload set decides them); else params are None,
+    step -1 and the tokenizer is built over ``wl``.  ``cfg`` is ``base``
+    with its head widened to the tokenizer's vocabulary where narrower
+    (constrained decoding cannot mask a head narrower than the tokenizer)."""
     from ..training.tokenizer import build_tokenizer
 
-    tok = build_tokenizer([wl])
-    cfg = reduced_cfg(arch) if reduced else get(arch)
+    params, step, extra = (None, -1, {}) if ckpt_dir is None else \
+        restore_params(base, ckpt_dir, device)
+    tok = build_tokenizer([wl if n == wl.name else WORKLOADS[n].build(n_fact=1000)
+                           for n in extra.get("tokenizer_workloads", [wl.name])])
+    cfg = base
     if cfg.vocab < tok.vocab_size:
         cfg = dataclasses.replace(cfg, vocab=tok.vocab_size)
-    engine = ServingEngine(cfg, cfg.build().init_params(cfg, seed, device=device), tok,
-                           device=device)
+    if params is not None and tuple(params["embed"].shape) != (cfg.vocab, cfg.d_model):
+        raise SystemExit(f"{ckpt_dir}: step {step}'s embedding "
+                         f"{tuple(params['embed'].shape)} does not fit {cfg.name} with "
+                         f"vocab {cfg.vocab}")
+    return cfg, params, tok, step
+
+
+def llm_canonicalizer(wl, arch: str = "canonicalizer-100m", reduced: bool = False,
+                      seed: int = 0, device="cuda", ckpt_dir: str | None = None):
+    """``MemoizedNL(CanonicalizerService(engine))`` over ``arch`` with
+    weights initialised from ``seed``, or restored from the newest
+    checkpoint in ``ckpt_dir`` that fits the arch, with the tokenizer and
+    head width of ``served_model``."""
+    from ..configs.registry import get, reduced as reduced_cfg
+    from ..serving.engine import CanonicalizerService, ServingEngine
+
+    cfg, params, tok, step = served_model(reduced_cfg(arch) if reduced else get(arch),
+                                          wl, ckpt_dir, device)
+    if params is None:
+        if ckpt_dir is not None:
+            print(f"[serve] no checkpoint in {ckpt_dir} fits {cfg.name}: serving "
+                  f"weights initialised from seed {seed}")
+        params = cfg.build().init_params(cfg, seed, device=device)
+    else:
+        print(f"[serve] restored canonicalizer from step {step}")
+    engine = ServingEngine(cfg, params, tok, device=device)
     return MemoizedNL(CanonicalizerService(engine, wl.schema.name))
 
 
@@ -166,13 +225,17 @@ def main(argv=None) -> None:
                     help="the tiny same-family config of --arch")
     ap.add_argument("--capacity", type=int, default=None,
                     help="most entries the semantic cache holds (default unbounded)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the LLM's weights from the newest training "
+                         "checkpoint here that fits --arch")
     args = ap.parse_args(argv)
 
     wl = WORKLOADS[args.workload].build(n_fact=args.n_fact, seed=args.seed)
     if args.simulated_llm:
         nl = MemoizedNL(SimulatedLLM(wl.vocab, model=args.model))
     else:
-        nl = llm_canonicalizer(wl, args.arch, args.reduced, args.seed, args.device)
+        nl = llm_canonicalizer(wl, args.arch, args.reduced, args.seed, args.device,
+                               args.ckpt_dir)
     svc = CacheService()
     tenant = build_tenant(svc, wl, device=args.device, nl=nl, capacity=args.capacity)
     results = []

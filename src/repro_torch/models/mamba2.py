@@ -30,7 +30,7 @@ from ..kernels.ssd_scan.ops import ssd_scan
 from ..kernels.ssd_scan.ref import ssd_decode_step
 from .layers import rmsnorm
 from .model import ModelConfig, init_by_rule
-from .transformer import _inputs, embed_tokens, logits_fn
+from .transformer import _inputs, embed_tokens, logits_fn, masked_xent
 from .transformer import to_device  # noqa: F401  (the family interface the engine calls)
 
 FLOAT32_LEAVES = frozenset({"dt_bias", "a_log", "d_skip"})
@@ -123,6 +123,19 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None):
     for lp in params["layers"]:
         x, _, _ = _block(cfg, lp, x)
     return logits_fn(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """batch: {"tokens" or "embeddings", "labels"} -> the mean cross-entropy
+    over labels >= 0, a f32 scalar.  On the card the SSD-scan kernel has no
+    backward yet, so a loss under grad raises there (ROADMAP.md Queue 1
+    item 1); on the CPU it differentiates the plain scan."""
+    dev = params["embed"].device
+    tokens, emb = batch.get("tokens"), batch.get("embeddings")
+    logits = forward(cfg, params,
+                     tokens=None if tokens is None else torch.as_tensor(tokens, device=dev),
+                     embeddings=None if emb is None else torch.as_tensor(emb, device=dev))
+    return masked_xent(logits, batch["labels"])
 
 
 # ------------------------------------------------------------------ serving

@@ -14,6 +14,7 @@ The device is the parameters' device: ``init_params`` puts them on
 function computes where its parameters live.  The same code serves:
 
   * ``forward``     — full-sequence logits (B, S, V),
+  * ``loss_fn``     — the training loss over a batch of tokens and labels,
   * ``prefill``     — a forward that seeds preallocated KV caches,
   * ``decode_step`` — one token against those caches, written in place.
 
@@ -101,6 +102,27 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None):
     for lp in params["layers"]:
         x, _ = _block(cfg, lp, x)
     return logits_fn(cfg, params, x)
+
+
+def masked_xent(logits, labels):
+    """Mean next-token cross-entropy over the positions whose label is >= 0,
+    from f32 logits (B, S, V) and int labels (B, S); 0 where none is."""
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """batch: {"tokens" or "embeddings", "labels"} (numpy arrays or
+    tensors) -> the mean cross-entropy over labels >= 0, a f32 scalar."""
+    dev = params["embed"].device
+    tokens, emb = batch.get("tokens"), batch.get("embeddings")
+    logits = forward(cfg, params,
+                     tokens=None if tokens is None else torch.as_tensor(tokens, device=dev),
+                     embeddings=None if emb is None else torch.as_tensor(emb, device=dev))
+    return masked_xent(logits, batch["labels"])
 
 
 # ------------------------------------------------------------------ serving

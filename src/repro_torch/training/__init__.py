@@ -1,1 +1,3 @@
-"""Training support: the canonicalizer tokenizer."""
+"""Training the canonicalizer: tokenizer, NL->signature data, AdamW with
+optional int8 gradient compression, checkpoints in the JAX package's
+on-disk format, and the restartable training loop."""

@@ -64,7 +64,8 @@ def test_default_paths_are_the_ports_packages():
     assert os.path.samefile(root, ROOT)
     paths = _default_paths(root)
     assert [os.path.basename(p) for p in paths] == list(DEFAULT_PACKAGES)
-    assert {"kernels", "serving", "cluster", "service", "storage"} <= set(DEFAULT_PACKAGES)
+    assert {"kernels", "serving", "cluster", "service", "storage", "training"} <= set(
+        DEFAULT_PACKAGES)
     assert all(os.sep + os.path.join("src", "repro_torch") + os.sep in p for p in paths)
 
 

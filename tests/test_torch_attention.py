@@ -149,6 +149,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fkernel.flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
         dkernel.decode_attention_cuda(q[:, :, 0], q, q, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fkernel.flash_attention_bwd_cuda(q, q, q, q, q)
     with pytest.raises(ValueError, match="tensors on"):
         flash_attention(q, q.to("meta"), q)
 
@@ -336,14 +338,14 @@ def test_decode_refs_ignore_slots_past_pos(ref, dtype):
 
 def test_head_dims_agree_with_the_sources():
     """The wrappers' head dims, the build's units and the HEAD_DIMS lists of
-    both CUDA sources are one set; any other dim is refused before a launch
+    the three CUDA sources (forward, backward, decode) are one set; any other dim is refused before a launch
     (on a CPU tensor the device check speaks first, so a CUDA-looking
     refusal is checked through the list)."""
     import re
 
     assert fkernel.HEAD_DIMS == dkernel.HEAD_DIMS == build.ATTN_HEAD_DIMS \
         == (16, 32, 64, 112, 128, 192, 256)
-    for name in ("flash_attn", "decode_attn"):
+    for name in ("flash_attn", "flash_attn_bwd", "decode_attn"):
         text = build.SOURCES[name][0].read_text()
         listed = re.search(r"#define HEAD_DIMS\(X\) (.*)", text).group(1)
         assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", listed)) == build.ATTN_HEAD_DIMS
@@ -363,3 +365,69 @@ def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
     header.write_text("// two\n")
     after = {name: build.library_path(name) for name in build.SOURCES}
     assert all(before[n] != after[n] for n in build.SOURCES)
+
+
+# the backward: every head dim the kernels are built for, GQA, odd S
+BWD_SHAPES = [(2, 4, 2, 77, 64), (1, 8, 1, 33, 32), (1, 4, 2, 65, 16), (1, 8, 2, 41, 112),
+              (1, 4, 4, 63, 128), (1, 6, 2, 35, 192), (1, 4, 1, 29, 256)]
+
+
+def _jax_grads(q, k, v, do, causal, dtype):
+    import jax
+
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    args = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    _, vjp = jax.vjp(lambda a, b, c: jmha_ref(a, b, c, causal=causal), *args)
+    return [np.asarray(g, np.float32) for g in vjp(jnp.asarray(do, jdt))]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_bwd_ref_matches_jax_grad(b, h, hkv, s, dh, causal, dtype):
+    """``mha_bwd_ref`` against ``jax.vjp`` of the JAX ``mha_ref`` (what the
+    JAX package's training differentiates): float32 1e-5; bfloat16 5e-2
+    (the frameworks round bf16 at other places), dtypes kept."""
+    rng = np.random.default_rng(b * 100 + s + dh)
+    q, do = (rng.normal(size=(b, h, s, dh)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(b, hkv, s, dh)).astype(np.float32) for _ in range(2))
+    got = fref.mha_bwd_ref(*(T(a).to(dtype) for a in (q, k, v, do)), causal=causal)
+    want = _jax_grads(q, k, v, do, causal, dtype)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_tiled_ref_matches_plain(b, h, hkv, s, dh, dtype):
+    """The backward kernel's arithmetic (``flash_bwd_tiled_ref``: tiled
+    logsumexp, D from the forward's rounded output) against
+    ``mha_bwd_ref`` on the inputs' exact float32 values, at the card's
+    tolerance (``BWD_TOL`` of tests/test_torch_cuda.py): float32 1e-3;
+    bfloat16 rtol 1e-2, atol 2e-2."""
+    rng = np.random.default_rng(b * 10 + s + dh)
+    q, do = (T(rng.normal(size=(b, h, s, dh)).astype(np.float32)).to(dtype) for _ in range(2))
+    k, v = (T(rng.normal(size=(b, hkv, s, dh)).astype(np.float32)).to(dtype) for _ in range(2))
+    o = fref.mha_ref(q, k, v)
+    got = fref.flash_bwd_tiled_ref(q, k, v, o, do)
+    want = fref.mha_bwd_ref(q.float(), k.float(), v.float(), do.float())
+    rtol, atol = (1e-3, 1e-3) if dtype == torch.float32 else (1e-2, 2e-2)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_autograd_on_cpu_is_the_plain_backward():
+    """CPU tensors differentiate ``mha_ref`` under autograd: their gradient
+    is ``mha_bwd_ref``'s, and no kernel is counted."""
+    rng = np.random.default_rng(3)
+    q, do = (T(rng.normal(size=(2, 6, 37, 32)).astype(np.float32)) for _ in range(2))
+    k, v = (T(rng.normal(size=(2, 2, 37, 32)).astype(np.float32)) for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launch_counts()
+    flash_attention(*leaves).backward(do)
+    assert launch_counts()["flash_attn"] == launch_counts()["flash_attn_bwd"] == 0
+    for leaf, want in zip(leaves, fref.mha_bwd_ref(q, k, v, do)):
+        np.testing.assert_allclose(leaf.grad.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)

@@ -642,3 +642,144 @@ def test_mamba2_on_the_card_matches_the_cpu(cuda_device):
     assert launch_counts()["ssd_scan"] == cfg.n_layers
     for got, want in zip(out[str(cuda_device)], out["cpu"]):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3, atol=1e-3)
+
+
+# (rtol, atol) of the backward kernel against ``mha_bwd_ref`` on the inputs'
+# exact float32 values.  float32: only the order of f32 sums differs.
+# bfloat16: the kernel does the f32 arithmetic but takes D = rowsum(dO * O)
+# from the forward's bf16 output and rounds dq, dk, dv once (2**-9
+# relative); at the training shape the plain rehearsal of that arithmetic
+# (``flash_bwd_tiled_ref``) lies 0.0066 past rtol 1e-2 on gradients up to 10.
+BWD_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-2, 2e-2)}
+
+# the training shape (canonicalizer-100m: batch 16, 12 heads over 4, S 192),
+# tile edges of both tilings (64 rows to head dim 128, 32 past it), GQA
+# groups 1, 3 and 8, and every head dim the kernels are built for
+BWD_CASES = [(16, 12, 4, 192, 64), (2, 4, 2, 77, 64), (1, 3, 1, 1, 64), (2, 8, 1, 65, 32),
+             (2, 4, 4, 129, 128), (1, 8, 2, 100, 16), (1, 16, 2, 33, 112),
+             (1, 6, 2, 65, 192), (1, 8, 1, 97, 256), (1, 2, 2, 31, 256)]
+
+
+def _bwd_inputs(dev, b, h, hkv, s, dh, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((b, h, s, dh), generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, dh), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", BWD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain(cuda_device, b, h, hkv, s, dh, causal, dtype):
+    """dq, dk, dv of the backward kernel against the plain backward, and two
+    calls bit for bit (no atomics: every sum in a fixed order)."""
+    q, k, v, do = _bwd_inputs(cuda_device, b, h, hkv, s, dh, dtype, b * 1000 + s + dh)
+    o = fkernel.flash_attention_cuda(q, k, v, causal=causal)
+    reset_launch_counts()
+    got = fkernel.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    assert launch_counts()["flash_attn_bwd"] == 1
+    want = fref.mha_bwd_ref(q.float(), k.float(), v.float(), do.float(), causal=causal)
+    rtol, atol = BWD_TOL[dtype]
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.cpu().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
+    again = fkernel.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    torch.cuda.synchronize()
+
+
+def test_flash_attention_bwd_refuses_other_head_dims(cuda_device):
+    q = torch.zeros((1, 4, 8, 320), device=cuda_device)
+    kv = torch.zeros((1, 2, 8, 320), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 320"):
+        fkernel.flash_attention_bwd_cuda(q, kv, kv, q, q)
+    q, k, v, do = _bwd_inputs(cuda_device, 1, 4, 2, 8, 64, torch.float32, 0)
+    with pytest.raises(ValueError, match="o .* does not match q"):
+        fkernel.flash_attention_bwd_cuda(q, k, v, q[:, :, :4].contiguous(), do)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        fkernel.flash_attention_bwd_cuda(q, k, v, q, do.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_launches_both_kernels(cuda_device, dtype):
+    """``flash_attention`` under grad goes through ``FlashAttention``: the
+    forward and the backward kernel once each, and the gradients of the
+    plain version (which the CPU tensors take under autograd)."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+
+    q, k, v, do = _bwd_inputs(cuda_device, 2, 6, 2, 77, 64, dtype, 7)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launch_counts()
+    out = flash_attention(*leaves)
+    out.backward(do)
+    assert launch_counts()["flash_attn"] == 1 and launch_counts()["flash_attn_bwd"] == 1
+    cpu = [t.detach().float().cpu().requires_grad_() for t in (q, k, v)]
+    flash_attention(*cpu).backward(do.float().cpu())
+    rtol, atol = BWD_TOL[dtype]
+    for leaf, ref_leaf in zip(leaves, cpu):
+        np.testing.assert_allclose(leaf.grad.float().cpu().numpy(), ref_leaf.grad.numpy(),
+                                   rtol=rtol, atol=atol)
+
+
+def test_transformer_forward_on_cuda_reaches_the_attention_weights(cuda_device):
+    """A loss through ``transformer.forward`` on the card gives every
+    layer's wq, wk and wv a finite gradient (the forward kernel alone, a
+    ctypes launch into a new tensor, would cut the graph there)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import reduced
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(reduced("canonicalizer-100m"), dtype=torch.float32)
+    params = transformer.init_params(cfg, 0, device=cuda_device)
+    for lp in params["layers"]:
+        for name in ("wq", "wk", "wv"):
+            lp[name].requires_grad_()
+    tokens = torch.randint(0, cfg.vocab, (2, 33), device=cuda_device)
+    reset_launch_counts()
+    transformer.forward(cfg, params, tokens=tokens).square().mean().backward()
+    counts = launch_counts()
+    assert counts["flash_attn"] == counts["flash_attn_bwd"] == cfg.n_layers
+    for lp in params["layers"]:
+        for name in ("wq", "wk", "wv"):
+            assert lp[name].grad is not None and bool(torch.isfinite(lp[name].grad).all())
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda_device):
+    """decode_attn, seg_agg and ssd_scan raise on CUDA inputs that require
+    grad, instead of returning a tensor cut off from the graph; under
+    no_grad they launch as before."""
+    from repro_torch.kernels.decode_attn.ops import decode_attention
+    from repro_torch.kernels.seg_agg import ops as seg_ops
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    q = torch.randn((2, 4, 64), device=cuda_device, requires_grad=True)
+    kv = torch.randn((2, 2, 16, 64), device=cuda_device)
+    pos = torch.full((2,), 16, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        decode_attention(q, kv, kv, pos)
+    vals = torch.randn((100, 2), device=cuda_device, requires_grad=True)
+    ids = torch.zeros(100, dtype=torch.int32, device=cuda_device)
+    mask = torch.ones(100, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="seg_agg"):
+        seg_ops.seg_agg(vals, ids, mask, 1)
+    cols = torch.zeros((100, 1), device=cuda_device)
+    bounds = torch.tensor([[[0.0, 1.0]]], device=cuda_device)
+    with pytest.raises(NotImplementedError, match="seg_agg"):
+        seg_ops.seg_agg_fused(vals, ids, cols, bounds, 1)
+    x = torch.randn((1, 8, 2, 64), device=cuda_device, requires_grad=True)
+    dt = torch.full((1, 8, 2), 0.1, device=cuda_device)
+    A = -torch.ones(2, device=cuda_device)
+    bm = torch.randn((1, 8, 16), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
+        ssd_scan(x, dt, A, bm, bm)
+    with torch.no_grad():
+        reset_launch_counts()
+        decode_attention(q, kv, kv, pos)
+        ssd_scan(x, dt, A, bm, bm)
+        seg_ops.seg_agg(vals, ids, mask, 1)
+    counts = launch_counts()
+    assert counts["decode_attn"] == counts["ssd_scan"] == counts["seg_agg"] == 1

@@ -75,6 +75,9 @@ def test_every_submodule_imports_without_jax():
     assert {f"repro_torch.obs.{m}" for m in ("metrics", "trace", "audit")} <= names
     assert {f"repro_torch.resilience.{m}" for m in (
         "errors", "primitives", "policy", "faults")} <= names
+    assert {f"repro_torch.training.{m}" for m in (
+        "tokenizer", "data", "optimizer", "checkpoint", "train_lib")} <= names
+    assert {"repro_torch.launch.train", "repro_torch.launch.serve"} <= names
 
 
 def test_default_device_raises_without_cuda(ssb_small, monkeypatch):
