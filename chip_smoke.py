@@ -48,8 +48,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
              16, 1), (64, 64, 3), (128, 64, 48), (128, 16, 3)}, dt small
              (0.001-0.1) and as large as mamba2's init gives (up to 2), y
              with and without the final state; against the sequential
-             ``ssd_ref`` where S <= 300, else ``ssd_chunked`` +
-             ``ssd_final_state``; tolerances (rtol, atol) float32 (1e-3,
+             ``ssd_ref`` (``ssd_final_state``'s whole-sequence cumulative
+             sum loses ~1e-3 relative at S = 4096:
+             ``benchmarks/bench_torch_ssd_precision.py``); tolerances
+             (rtol, atol) float32 (1e-3,
              1e-3), bfloat16 y (4e-3, 1e-3); NaN in the storage past S
              changes nothing; again at the main path's shapes (8 prompts,
              48 heads, P 64, N 128, bf16 x) and at the engine's ceiling (8
@@ -113,6 +115,39 @@ Phases, in order; any failed check raises and the script exits non-zero:
              (bfloat16): the protocol kept, every table against the oracle,
              one ssd_scan launch per layer and engine batch.  The ssd_scan
              launch count is read from (c) alone.
+6a. zamba2 — zamba2-7b at full width and depth (81 Mamba2 layers, d_model
+             3584, d_inner 7168, 112 SSD heads of 64, state 64; a shared
+             attention + geglu MLP block after every 6 layers, 13
+             applications, 32/32 heads of head dim 112, d_ff 14,336; vocab
+             32,000; ~6.75 B parameters), bf16 weights drawn on the card
+             from ``--seed``: (a) ``ssd_scan`` at x (8, 77, 112, 64), N 64,
+             ``flash_attn`` at head dim 112 over 32/32 heads (8 prompts of
+             77) and ``decode_attn`` there at pos 78 and 512, each checked
+             and timed beside its plain version, SDPA and its bound (the
+             sweeps of phase 2 also hold these head counts and the SSD scan
+             at 8 x {77, 300} x 112 heads); (b) teacher forcing in bf16 at
+             the first Mamba layer and the shared block and in f32 at depth
+             12 (2e-2 prefill, 3e-2 decode; the bf16 drift at one segment
+             of 6 layers and at 81 is printed, not held: the random-init
+             bf16 model amplifies rounding), and the f32 model's first 12
+             layers on the CPU against the card (1e-3); (c) 16 SSB NL
+             requests in 2 engine batches through ``CacheService``: 81
+             ``ssd_scan`` and 13 ``flash_attn`` launches per prefill, 13
+             ``decode_attn`` per decode step, the protocol kept, every table
+             against the oracle; one more batch profiled; the peak memory
+             above what was resident before; everything freed after it.
+6b. moe    — qwen3-moe-235b-a22b at full width (d_model 4096, 64/4 heads
+             of 128 with qk_norm, 128 experts as 16 x 8 of d_ff 1,536, top-8,
+             vocab 151,936) and 4 of its 94 layers (~11.2 B parameters, bf16,
+             drawn on the card): (a) teacher forcing in bf16 at 4 layers with
+             capacity factor 64 (drop-free routing); (b) the f32 model's
+             first layer on the CPU against the card at capacity factor 1.25
+             (1e-3), the routes dropped for capacity equal on both sides;
+             (c) 8 SSB NL requests in one engine batch through
+             ``CacheService``: 4 ``flash_attn`` launches per prefill, 4
+             ``decode_attn`` per step; one more batch profiled, its device
+             time split between the expert products and the routing ops.
+             No Pallas kernel computes the MoE layer: it is plain PyTorch.
 7. serve   — SSB at ``--n-fact`` rows (SF1's LINEORDER has 6,000,000)
              through ``CacheService`` (``serve.build_tenant``, a one-shard
              cluster cache): the SSB SQL stream, the hierarchical drill
@@ -694,11 +729,14 @@ def _f32(*tensors):
     return tuple(t.float() for t in tensors)
 
 
-# (H, Hkv) at which each head dim past 64 and 128 is checked and timed: the
-# reduced configs' dim 16 at 4/2 heads, the reference's kernel tests' 32 at
-# 8/1, kimi-k2's 112 at 64/8 (zamba2's is 32/32), nemotron-4-340b's 192 at
-# 96/8 and gemma-2b's 256 at 8/1
-HEAD_DIM_HEADS = {16: (4, 2), 32: (8, 1), 112: (64, 8), 192: (96, 8), 256: (8, 1)}
+# (Dh, H, Hkv) at which each head dim past 64 and 128 is checked and timed:
+# the reduced configs' dim 16 at 4/2 heads, the reference's kernel tests' 32
+# at 8/1, kimi-k2's 112 at 64/8 and zamba2-7b's at 32/32 (group 1: one live
+# row in the bf16 decode's 16-row tile), nemotron-4-340b's 192 at 96/8 and
+# gemma-2b's 256 at 8/1
+ZAMBA2_HEADS = (112, 32, 32)
+HEAD_DIM_HEADS = ((16, 4, 2), (32, 8, 1), (112, 64, 8), ZAMBA2_HEADS, (192, 96, 8),
+                  (256, 8, 1))
 
 
 def _decode_is_the_prefill_row(q, k, v, got, what: str) -> None:
@@ -781,7 +819,7 @@ def attention_checks(dev, gen) -> dict:
                     # chunk edges and the engine's pos, mixed in one batch
                     decode([1, c - 1, c, c + 1, 77, 511, s], hkv * g, hkv, s, dh, dtype,
                            f"decode {dtype} dh={dh} G={g} S={s}")
-        for dh, (h, hkv) in HEAD_DIM_HEADS.items():
+        for dh, h, hkv in HEAD_DIM_HEADS:
             for s in (1, 63, 64, 65, 129, 512):
                 for causal in (False, True):
                     flash(1 if h > 16 else 2, h, hkv, s, dh, dtype, causal,
@@ -952,7 +990,7 @@ def head_dim_times(dev, gen, plen: int, cache: int, iters: int) -> list[dict]:
     a ``cache``-slot cache, each checked and timed beside SDPA and its
     bound."""
     rows = []
-    for dh, (h, hkv) in HEAD_DIM_HEADS.items():
+    for dh, h, hkv in HEAD_DIM_HEADS:
         rows.append({"kernel": "flash_attn", "head_dim": dh,
                      **_flash_at(dev, gen, 8, h, hkv, plen, dh, iters)[0]})
         rows.append({"kernel": "decode_attn", "head_dim": dh,
@@ -967,6 +1005,7 @@ def head_dim_times(dev, gen, plen: int, cache: int, iters: int) -> list[dict]:
 # bfloat16 y: one output rounding more (at most 2**-8 relative); the state is
 # float32 in both.
 SSD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (4e-3, 1e-3)}
+ZAMBA2_SSD = (8, 112, 64, 64)  # (B, H, P, N) of zamba2-7b's SSD scan in an engine batch
 
 
 def _ssd_inputs(gen, dev, b, s, h, p, n, dtype, dt_hi):
@@ -992,11 +1031,11 @@ def _ssd_check(x, dt, A, Bm, Cm, what: str) -> float:
     y, state = SK.ssd_scan_cuda(x, dt, A, Bm, Cm, return_state=True)
     if not torch.equal(SK.ssd_scan_cuda(x, dt, A, Bm, Cm), y):
         raise AssertionError(f"{what}: y differs with and without the state")
-    if x.shape[1] <= 300:
-        want_y, want_state = SR.ssd_ref(x.float(), dt, A, Bm, Cm)
-    else:
-        want_y = SR.ssd_chunked(x.float(), dt, A, Bm, Cm)
-        want_state = SR.ssd_final_state(x.float(), dt, A, Bm)
+    # the sequential scan at every S: the one-pass ssd_final_state weighs
+    # step t by exp(cum_S - cum_t) over the whole sequence, which float32
+    # resolves to ~1e-3 relative at S = 4096 and dt up to 2 (past this
+    # tolerance against float64: benchmarks/bench_torch_ssd_precision.py)
+    want_y, want_state = SR.ssd_ref(x.float(), dt, A, Bm, Cm)
     name = str(x.dtype).removeprefix("torch.")
     return max(compare(finite(y, what), want_y, f"{what} y", *SSD_TOL[name]),
                compare(finite(state, what), want_state, f"{what} state",
@@ -1020,6 +1059,14 @@ def ssd_checks(dev, gen) -> dict:
                     args = _ssd_inputs(gen, dev, b, s, h, p, n, dtype, dt_hi)
                     what = f"ssd {name} S={s} N={n} P={p} H={h} dt<{dt_hi}"
                     errs[name] = max(errs[name], _ssd_check(*args, what))
+        # zamba2-7b's prefill: 8 prompts, 112 heads of P 64 over N 64 (the
+        # kernel blocks heads in groups of 3: the last group holds one head)
+        b, h, p, n = ZAMBA2_SSD
+        for s in (77, 300):
+            for dt_hi in (0.1, 2.0):
+                args = _ssd_inputs(gen, dev, b, s, h, p, n, dtype, dt_hi)
+                errs[name] = max(errs[name], _ssd_check(
+                    *args, f"ssd {name} zamba2 x ({b},{s},{h},{p}) N={n} dt<{dt_hi}"))
     # with B = 1 a prefix of S rows is contiguous: NaN in the storage past S
     s = 77
     x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, 1, 128, 48, 64, 128, torch.bfloat16, 2.0)
@@ -1060,33 +1107,60 @@ def ssd_times(dev, gen, plen: int, cache: int, iters: int) -> dict:
     ``cache`` tokens.  The bound takes the operations at the bf16 tensor
     cores' rate, where the bf16 kernel runs its products; ``bound_f32_ms``
     keeps PR 13-14's bound at the f32 CUDA-core rate beside it."""
+    rows = {}
+    for s in (plen, cache):
+        t = _ssd_at(dev, gen, 8, s, 48, 64, 128, iters)
+        t["bound_f32_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / F32_OPS_PER_S) * 1e3
+        rows[s] = t
+    main = rows[plen]
+    main["reach"] = rows[cache]
+    main["max_abs_err"] = max(main["max_abs_err"], rows[cache]["max_abs_err"])
+    return {"ssd_scan": main}
+
+
+def _ssd_at(dev, gen, b, s, h, p, n, iters: int) -> dict:
+    """The SSD-scan kernel at x (B, S, H, P) bf16 over state N, dt as large
+    as the Mamba2 init gives, the final state written: checked, kernel and
+    plain timed, with its bound at the bf16 tensor-core rate."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan import ref as SR
 
-    rows = {}
-    for s in (plen, cache):
-        b, h, p, n = 8, 48, 64, 128
-        x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, b, s, h, p, n, torch.bfloat16, 2.0)
-        shape = f"x ({b},{s},{h},{p}) bf16 dt ({b},{s},{h}) B/C ({b},{s},{n}), state out"
-        t = {
-            "max_abs_err": _ssd_check(x, dt, A, Bm, Cm, f"ssd {shape}"),
-            **timed((lambda *a: SK.ssd_scan_cuda(*a, return_state=True), (x, dt, A, Bm, Cm)),
-                    (lambda x, dt, A, Bm, Cm: (SR.ssd_chunked(x, dt, A, Bm, Cm),
-                                               SR.ssd_final_state(x, dt, A, Bm)),
-                     (x, dt, A, Bm, Cm)), None, iters),
-            # x and y in bf16, dt, A, B, C and the final state in f32, each once
-            "bytes": 2 * 2 * b * s * h * p + 4 * (b * s * h + h + 2 * b * s * n + b * h * p * n),
-            "ops": ssd_ops(b, s, h, p, n),
-            "shape": shape,
-        }
-        t["bound_f32_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / F32_OPS_PER_S) * 1e3
-        rows[s] = with_bound(t, BF16_OPS_PER_S)
-    main = rows[plen]
-    main["reach"] = rows[cache]
-    main["max_abs_err"] = max(main["max_abs_err"], rows[cache]["max_abs_err"])
-    return {"ssd_scan": main}
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, dev, b, s, h, p, n, torch.bfloat16, 2.0)
+    shape = f"x ({b},{s},{h},{p}) bf16 dt ({b},{s},{h}) B/C ({b},{s},{n}), state out"
+    return with_bound({
+        "shape": shape, "max_abs_err": _ssd_check(x, dt, A, Bm, Cm, f"ssd {shape}"),
+        **timed((lambda *a: SK.ssd_scan_cuda(*a, return_state=True), (x, dt, A, Bm, Cm)),
+                (lambda x, dt, A, Bm, Cm: (SR.ssd_chunked(x, dt, A, Bm, Cm),
+                                           SR.ssd_final_state(x, dt, A, Bm)),
+                 (x, dt, A, Bm, Cm)), None, iters),
+        "bytes": 2 * 2 * b * s * h * p + 4 * (b * s * h + h + 2 * b * s * n + b * h * p * n),
+        "ops": ssd_ops(b, s, h, p, n)}, BF16_OPS_PER_S)
+
+
+def zamba2_times(dev, gen, plen: int, cache: int, iters: int) -> list[dict]:
+    """The kernels at the launch shapes zamba2-7b's engine gives them, each
+    checked and timed beside its plain version, SDPA where it applies, and
+    its bound: ``ssd_scan`` over the first engine batch (8 prompts padded to
+    ``plen``, 112 heads of P 64, N 64), ``flash_attn`` at head dim 112 over
+    32/32 heads for the same prompts, ``decode_attn`` at pos ``plen`` + 1
+    (the first decode step) and ``cache`` of a ``cache``-slot cache."""
+    from repro_torch.kernels.decode_attn import ref as DR
+    from repro_torch.kernels.flash_attn import ref as FR
+
+    dh, h, hkv = ZAMBA2_HEADS
+    b = NL_BATCH
+    flash, inputs = _flash_at(dev, gen, b, h, hkv, plen, dh, iters)
+    flash["plain_ms"] = device_ms(FR.mha_ref, max(3, iters // 4), inputs)
+    rows = [{"kernel": "ssd_scan", **_ssd_at(dev, gen, b, plen, *ZAMBA2_SSD[1:], iters)},
+            {"kernel": "flash_attn", **flash}]
+    for n in (plen + 1, cache):
+        row = _decode_at(dev, gen, b, h, hkv, cache, dh, n, iters)
+        q, k, v, pos, _ = _decode_inputs(dev, gen, b, h, hkv, cache, dh, n)
+        row["plain_ms"] = device_ms(DR.decode_attention_ref, max(3, iters // 4), (q, k, v, pos))
+        rows.append({"kernel": "decode_attn", **row})
+    return rows
 
 
 def fused_shape_table(phases: dict, dev, gen, iters: int, baseline=None) -> list[dict]:
@@ -1220,9 +1294,11 @@ def _nl_batch(nl, wl, oracle, texts) -> dict:
     the launch counts zeroed just before and read just after: every
     NLResult keeps the protocol (signature None iff error set), every
     served table matches the oracle, and the model launched its kernels
-    once per layer and engine batch (dense: ``flash_attn``; Mamba2:
-    ``ssd_scan`` and no attention) and, dense, ``decode_attn`` once per
-    layer and decode step."""
+    once per layer and engine batch (dense and MoE: ``flash_attn``;
+    Mamba2: ``ssd_scan`` and no attention; Zamba2: ``ssd_scan`` per Mamba
+    layer and ``flash_attn`` per application of the shared block) and
+    ``decode_attn`` once per attention layer (application) and decode
+    step."""
     import torch
 
     from repro_torch.kernels.binding import launch_counts, reset_launch_counts
@@ -1252,9 +1328,11 @@ def _nl_batch(nl, wl, oracle, texts) -> dict:
     if nl.calls != len(texts):
         raise AssertionError(f"{nl.calls} canonicalizer calls for {len(texts)} texts")
     batches = -(-len(texts) // NL_BATCH)
-    want = ({"flash_attn": cfg.n_layers * batches, "decode_attn": cfg.n_layers * steps,
-             "ssd_scan": 0} if cfg.kind == "dense" else
-            {"flash_attn": 0, "decode_attn": 0, "ssd_scan": cfg.n_layers * batches})
+    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(cfg.kind,
+                                                                        cfg.n_layers)
+    mamba = cfg.n_layers if cfg.kind in ("ssm", "hybrid") else 0
+    want = {"flash_attn": attn * batches, "decode_attn": attn * steps,
+            "ssd_scan": mamba * batches}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{cfg.name} launches {dict(launches)} for {len(texts)} "
                              f"requests and {steps} steps")
@@ -1356,8 +1434,9 @@ def _teacher_forcing(mod, cfg, params, tokens, depth: int, **prefill_kw):
     room for that step)."""
     import torch
 
-    cfg = dataclasses.replace(cfg, n_layers=depth)
-    params = {**params, "layers": params["layers"][:depth]}
+    from repro_torch.models.model import cut_depth
+
+    cfg, params = cut_depth(cfg, params, depth)
     nxt = tokens[:, -1]
     with torch.inference_mode():
         full = mod.forward(cfg, params, tokens=tokens)
@@ -1490,6 +1569,7 @@ def gemma_phase(seed: int, plen: int) -> dict:
     from repro_torch.configs.registry import get
     from repro_torch.kernels.binding import launch_counts, reset_launch_counts
     from repro_torch.models import transformer as tt
+    from repro_torch.models.model import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
     torch.backends.cudnn.allow_tf32 = False
@@ -1501,11 +1581,8 @@ def gemma_phase(seed: int, plen: int) -> dict:
     t0 = time.perf_counter()
     p32 = tt.init_params(c32, seed, device="cuda")
     # init_params draws in f32 and casts: the bf16 weights are these, cast
-    p16 = {k: ([{n: t.to(cfg.dtype) for n, t in lp.items()} for lp in v]
-               if k == "layers" else v.to(cfg.dtype)) for k, v in p32.items()}
-    out["parameters"] = sum(t.numel() for k, v in p32.items()
-                            for t in ([x for lp in v for x in lp.values()]
-                                      if k == "layers" else [v]))
+    p16 = tree_map(lambda t: t.to(cfg.dtype), p32)
+    out["parameters"] = sum(t.numel() for t in tree_leaves(p32))
     out["init_s"] = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(seed)
     b, s = 4, 64
@@ -1560,6 +1637,240 @@ def gemma_phase(seed: int, plen: int) -> dict:
                    "wall_s": time.perf_counter() - t0,
                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
     return {"launches": launches, "summary": out}
+
+
+# ------------------------------------------------------- zamba2 and moe
+
+
+ZAMBA2_CPU_DEPTH = 12  # zamba2-7b's card-vs-CPU check: two segments, two applications
+MOE_DEPTH = 4  # qwen3-moe-235b-a22b's layers on the card: 4 of 94, ~22.4 GB in bf16
+MOE_CPU_DEPTH = 1  # its card-vs-CPU check: the f32 weights of one layer on the host
+# decode steps of the two large models' profiled batch: zamba2-7b's step
+# traces ~5,700 device ops, and long traces cost the profiler records later
+LARGE_PROFILE_STEPS = 8
+
+
+def _free() -> None:
+    """Return the memory of everything no longer referenced to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _card_vs_cpu(mod, cfg, params, tokens, depth: int, what: str, counter=None) -> dict:
+    """The first ``depth`` layers of a float32 copy of ``params`` (the
+    bf16 values, exact in f32) on the card and on the CPU: prefill and one
+    decode step within 1e-3.  ``counter`` (a context manager yielding a list
+    of counts, e.g. ``moe.count_dropped``) is opened around each side's
+    prefill and decode; their sums must be equal on both sides."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models.model import cut_depth, tree_map
+
+    cfg, cut = cut_depth(dataclasses.replace(cfg, dtype=torch.float32), params, depth)
+    cut = tree_map(lambda t: t.float(), cut)
+    runs, counts = [], []
+    for p, t in ((cut, tokens), (mod.to_device(cut, "cpu"), tokens.cpu())):
+        with torch.inference_mode():
+            with counter() if counter else contextlib.nullcontext([]) as c1:
+                logits, caches, pos = mod.prefill(cfg, p, tokens=t, cache_len=t.shape[1] + 8)
+            with counter() if counter else contextlib.nullcontext([]) as c2:
+                step = mod.decode_step(cfg, p, t[:, -1], caches, pos)[0]
+        runs.append((finite(logits, f"{what} prefill"), finite(step, f"{what} decode")))
+        counts.append((int(sum(c1)), int(sum(c2))))
+    (card, card_step), (host, host_step) = runs
+    out = {"prefill": compare(card, host, f"{what} card vs cpu prefill depth {depth}",
+                              1e-3, 1e-3),
+           "decode": compare(card_step, host_step, f"{what} card vs cpu decode depth {depth}",
+                             1e-3, 1e-3)}
+    if counter:
+        if counts[0] != counts[1]:
+            raise AssertionError(f"{what}: (prefill, decode) counts {counts[0]} on the card, "
+                                 f"{counts[1]} on the CPU")
+        out["counted_card_cpu"] = counts
+    return out
+
+
+def _served_phase(cfg, params, tok, wl, oracle, texts, ranges: tuple = ()) -> dict:
+    """``texts`` through ``MemoizedNL(CanonicalizerService(engine))`` in a
+    ``CacheService`` tenant (``_nl_batch``), then one engine batch of at
+    most ``LARGE_PROFILE_STEPS`` decode steps under ``torch.profiler``
+    (``profile_engine``)."""
+    from repro_torch.core.nl_canon import MemoizedNL
+    from repro_torch.serving.engine import CanonicalizerService, ServingEngine
+
+    engine = ServingEngine(cfg, params, tok)
+    run = _nl_batch(MemoizedNL(CanonicalizerService(engine, wl.schema.name)), wl, oracle,
+                    texts)
+    run["profile"] = profile_engine(engine, wl, ranges, LARGE_PROFILE_STEPS)
+    del run["engine"]
+    return run
+
+
+def zamba2_phase(wl, oracle, seed: int, dev, plen: int, iters: int) -> dict:
+    """zamba2-7b at full width and depth (81 Mamba2 layers, d_model 3584,
+    d_inner 7168, 112 SSD heads of 64, state 64; the shared attention +
+    geglu MLP block after every 6 layers, 13 applications, 32/32 heads of
+    head dim 112, d_ff 14,336; vocab 32,000; ~6.75 B parameters), bf16
+    weights drawn on the card from ``seed``: (a) the kernels at its launch
+    shapes (``zamba2_times``); (b) teacher forcing, prefill against
+    ``forward`` (2e-2) and a decode step against ``forward`` over S+1
+    (3e-2), in bf16 at the first Mamba layer and the shared block after it
+    and in f32 at ``ZAMBA2_CPU_DEPTH``; in bf16 at one segment (6 layers
+    and the block) and at full depth the drift is read, not held (at
+    random init the bf16 model amplifies rounding layer by layer: 0.076
+    at one segment on an H100); f32 card against CPU at
+    ``ZAMBA2_CPU_DEPTH`` (1e-3); (c) 16
+    SSB NL questions in 2 engine batches through ``CacheService``, the
+    launch counts zeroed just before and read just after (81 ``ssd_scan``
+    and 13 ``flash_attn`` per prefill, 13 ``decode_attn`` per step), and
+    one more batch profiled.  The peak memory is read above what was
+    resident before the phase; everything is freed after it."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import serve
+    from repro_torch.models import zamba2
+    from repro_torch.models.model import cut_depth, tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kernels = zamba2_times(dev, gen, plen, MAX_LEN, iters)
+    _free()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, tok, _ = serve.served_model(get("zamba2-7b"), wl)  # vocab 32,000 kept
+    out: dict = {"config": {k: getattr(cfg, k) for k in (
+        "n_layers", "d_model", "d_inner", "ssm_heads", "ssm_head_dim", "ssm_state",
+        "n_heads", "kv_heads", "head_dim", "d_ff", "attn_every", "vocab")},
+        "applications": zamba2.attn_apps(cfg), "kernels": kernels}
+    t0 = time.perf_counter()
+    params = zamba2.init_params(cfg, gen, device=dev)  # drawn on the card
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["parameters"] = sum(t.numel() for t in tree_leaves(params))
+    out["param_count"] = cfg.param_count()
+    b, s = 4, 64
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(seed))
+    tokens = tokens.to(dev)
+
+    # (b) teacher forcing, held in bf16 at one Mamba layer and the shared
+    # block (attn_every 1) and in f32 at two segments; the bf16 drift of one
+    # segment and of the whole model is read, not held: at random init the
+    # bf16 model amplifies rounding layer by layer (the port's and JAX's
+    # alike, tests/test_torch_zamba2.py), as mamba2-780m's does
+    tf = {}
+    one = dataclasses.replace(cfg, attn_every=1)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    for name, c, depth, held in (("bfloat16_layer_1_and_block", one, 1, True),
+                                 (f"bfloat16_depth_{cfg.attn_every}", cfg, cfg.attn_every, False),
+                                 (f"bfloat16_depth_{cfg.n_layers}", cfg, cfg.n_layers, False),
+                                 (f"float32_depth_{ZAMBA2_CPU_DEPTH}", f32, ZAMBA2_CPU_DEPTH,
+                                  True)):
+        p = params
+        if c.dtype != cfg.dtype:  # the first layers' bf16 values in f32
+            p = tree_map(lambda t: t.float(), cut_depth(c, params, depth)[1])
+        full, logits, step, full2 = _teacher_forcing(zamba2, c, p, tokens, depth,
+                                                     cache_len=s + 8)
+        if held:
+            tf[name] = {"prefill": compare(logits, full[:, -1], f"zamba2 prefill {name}",
+                                           2e-2, 2e-2),
+                        "decode": compare(step, full2[:, -1], f"zamba2 decode {name}",
+                                          3e-2, 3e-2)}
+        else:
+            tf[name] = {"prefill_read": float((logits - full[:, -1]).abs().max()),
+                        "decode_read": float((step - full2[:, -1]).abs().max())}
+        tf[name].update(logits_std=float(full.std()), logits_absmax=float(full.abs().max()))
+        del p, full, full2
+    out["teacher_forcing_max_abs_err"] = tf
+    out[f"card_vs_cpu_max_abs_err_depth_{ZAMBA2_CPU_DEPTH}"] = _card_vs_cpu(
+        zamba2, cfg, params, tokens[:2, :32], ZAMBA2_CPU_DEPTH, "zamba2")
+    _free()
+
+    # (c) 16 NL questions through the pipeline, bf16
+    run = _served_phase(cfg, params, tok, wl, oracle, _nl_texts(wl, 2 * NL_BATCH))
+    out["pipeline"], out["profile"] = run["summary"], run["profile"]
+    out["peak_bytes_above_resident"] = torch.cuda.max_memory_allocated() - resident
+    del params, run["summary"]
+    _free()
+    return {"launches": run["launches"], "summary": out}
+
+
+def moe_phase(wl, oracle, seed: int, dev) -> dict:
+    """qwen3-moe-235b-a22b at full width (d_model 4096, 64/4 heads of 128
+    with qk_norm, 128 experts in 16 x 8 of d_ff 1,536, top-8, vocab
+    151,936, bf16) and ``MOE_DEPTH`` of its 94 layers (94 are ~470 GB in
+    bf16), weights drawn on the card from ``seed``: (a) teacher forcing in
+    bf16 at ``MOE_DEPTH`` with capacity factor 64 (drop-free routing:
+    capacity truncation differs between a one-token decode and a full
+    forward); (b) f32 card against CPU at ``MOE_CPU_DEPTH`` at the config's
+    capacity factor (1.25), the routes dropped for capacity counted on both
+    sides and equal; (c) 8 SSB NL questions in one engine batch through
+    ``CacheService`` (``MOE_DEPTH`` ``flash_attn`` per prefill and
+    ``decode_attn`` per step), and one more batch profiled, its device time
+    split between the expert products (``moe.experts``) and the routing
+    ops (``moe.routing``: router, top-k, gathers, scatter-adds)."""
+    import torch
+
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.model import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _free()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full_cfg, _, tok, _ = serve.served_model(get("qwen3-moe-235b-a22b"), wl)
+    cfg = dataclasses.replace(full_cfg, n_layers=MOE_DEPTH)
+    out: dict = {"config": {k: getattr(cfg, k) for k in (
+        "n_layers", "d_model", "n_heads", "kv_heads", "head_dim", "qk_norm", "n_experts",
+        "top_k", "d_ff", "capacity_factor", "vocab")},
+        "expert_shards": moe.expert_shards(cfg), "full_depth_layers": full_cfg.n_layers,
+        "full_depth_param_count": full_cfg.param_count(),
+        "full_depth_active_param_count": full_cfg.active_param_count()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["parameters"] = sum(t.numel() for t in tree_leaves(params))
+    b, s = 4, 64
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(seed))
+    tokens = tokens.to(dev)
+
+    # (a) teacher forcing in bf16 at the cut depth, drop-free
+    c = dataclasses.replace(cfg, capacity_factor=64.0)
+    full, logits, step, full2 = _teacher_forcing(transformer, c, params, tokens, MOE_DEPTH,
+                                                 cache_len=s + 8)
+    out["teacher_forcing_max_abs_err"] = {"bfloat16": {
+        "prefill": compare(logits, full[:, -1], "moe prefill bf16", 2e-2, 2e-2),
+        "decode": compare(step, full2[:, -1], "moe decode bf16", 3e-2, 3e-2),
+        "logits_std": float(full.std()), "logits_absmax": float(full.abs().max())}}
+    del full, full2
+    # (b) card vs CPU in f32 at the config's capacity, dropped routes equal
+    out[f"card_vs_cpu_max_abs_err_depth_{MOE_CPU_DEPTH}"] = _card_vs_cpu(
+        transformer, cfg, params, tokens[:2, :32], MOE_CPU_DEPTH, "moe", moe.count_dropped)
+    _free()
+
+    # (c) 8 NL questions through the pipeline, bf16
+    run = _served_phase(cfg, params, tok, wl, oracle, _nl_texts(wl, NL_BATCH),
+                        ranges=("moe.experts", "moe.routing"))
+    out["pipeline"], out["profile"] = run["summary"], run["profile"]
+    out["peak_bytes_above_resident"] = torch.cuda.max_memory_allocated() - resident
+    del params, run["summary"]
+    _free()
+    return {"launches": run["launches"], "summary": out}
 
 
 # ----------------------------------------------------------------- serve
@@ -2382,7 +2693,7 @@ def bwd_checks(dev, gen) -> dict:
         cases += [(2, 2 * g, 2, s, dh, c) for dh in (64, 128) for g in (1, 2, 3, 4, 8)
                   for s in (1, 2, 63, 64, 65, 77, 96, 129, 512, 1000) for c in (False, True)]
         cases += [(1 if h > 16 else 2, h, hkv, s, dh, c)
-                  for dh, (h, hkv) in HEAD_DIM_HEADS.items()
+                  for dh, h, hkv in HEAD_DIM_HEADS
                   for s in (1, 63, 64, 65, 129, 512) for c in (False, True)]
         for b, h, hkv, s, dh, causal in cases:
             errs[name] = max(errs[name], _bwd_check(
@@ -2676,12 +2987,16 @@ def _cold_tenant(n_fact: int, seed: int, requests: int):
 
 
 def _device_ops(prof) -> dict[str, tuple[float, int]]:
-    """(device ms, count) of every kernel and copy the profiler traced, by name."""
+    """(device ms, count) of every kernel and copy the profiler traced, by
+    name.  A ``record_function`` range also shows on the device's timeline
+    (from its first kernel's start to its last one's end): left out."""
     import torch
 
     ops: dict[str, tuple[float, int]] = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False) \
+                and not e.name.startswith("moe."):
             ms, n = ops.get(e.name, (0.0, 0))
             ops[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     return ops
@@ -2738,12 +3053,13 @@ def profile_sample(n_fact: int, seed: int, requests: int = 64) -> dict:
 PROFILE_STEPS = 32  # decode steps of a profiled engine batch (a trace of 128 took minutes)
 
 
-def profile_engine(engine, wl) -> dict:
+def profile_engine(engine, wl, ranges: tuple = (), steps: int = PROFILE_STEPS) -> dict:
     """One more engine batch of 8 NL questions (not seen before), the
-    CanonicalizerService's prompts, at most ``PROFILE_STEPS`` constrained
+    CanonicalizerService's prompts, at most ``steps`` constrained
     decode steps, under ``torch.profiler``: device busy share of prefill +
     decode loop, device ms per decode step next to the engine's host ms per
-    step."""
+    step, and the device ms per step of the kernels launched inside each
+    ``record_function`` range named in ``ranges`` (prefill included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2753,7 +3069,7 @@ def profile_engine(engine, wl) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.generate(prompts, max_new_tokens=PROFILE_STEPS, constrained=True)
+        engine.generate(prompts, max_new_tokens=steps, constrained=True)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     steps = engine.steps - steps0
@@ -2767,7 +3083,21 @@ def profile_engine(engine, wl) -> dict:
             "device_ms_per_step": device_ms / max(steps, 1) if by_name else None,
             "host_ms_per_step": (engine.host_s - host0) / max(steps, 1) * 1e3,
             "model_ms_per_step": (engine.model_s - model0) / max(steps, 1) * 1e3,
+            **({"device_ms_per_step_in": _range_ms(prof, ranges, steps)} if ranges else {}),
             "top_device_ms": _top(by_name, 8)}
+
+
+def _range_ms(prof, ranges: tuple, steps: int) -> dict:
+    """Device ms per step of the kernels launched inside each named
+    ``record_function`` range (a range's ``device_time_total`` counts the
+    kernels of the ops within it)."""
+    import torch
+
+    us = dict.fromkeys(ranges, 0.0)
+    for e in prof.events():
+        if e.name in us and e.device_type == torch.autograd.DeviceType.CPU:
+            us[e.name] += e.device_time_total
+    return {k: v / 1e3 / max(steps, 1) for k, v in us.items()}
 
 
 SOURCES = {
@@ -2891,6 +3221,20 @@ def main(argv=None) -> int:
     ssm = mamba2_phase(wl, oracle, args.seed)
     print(f"[mamba2] {json.dumps(ssm['summary'])} launches {json.dumps(ssm['launches'])} "
           f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zam = zamba2_phase(wl, oracle, args.seed, dev, plen, 10 * args.iters)
+    for r in zam["summary"].pop("kernels"):
+        errs[r["kernel"]] = max(errs[r["kernel"]], r["max_abs_err"])
+        print(f"[zamba2] {r['kernel']} {r['shape']}: device ms per call: kernel {r['ms']:.4f}, "
+              f"plain {r['plain_ms']:.4f}, library {r['library_ms']}; bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}); max abs err {r['max_abs_err']:.3g}; "
+              f"card: {card}")
+    print(f"[zamba2] {json.dumps(zam['summary'])} launches {json.dumps(zam['launches'])} "
+          f"in {time.perf_counter() - t0:.1f} s; card: {card}")
+    t0 = time.perf_counter()
+    mixture = moe_phase(wl, oracle, args.seed, dev)
+    print(f"[moe] {json.dumps(mixture['summary'])} launches "
+          f"{json.dumps(mixture['launches'])} in {time.perf_counter() - t0:.1f} s; card: {card}")
     served = serve_phase(wl, oracle)
     print(f"[serve] {json.dumps(served['summary'])} launches {json.dumps(served['launches'])}")
     t0 = time.perf_counter()
@@ -2956,6 +3300,9 @@ def main(argv=None) -> int:
     for path, counts, names in (("train", trained["launches"], ("flash_attn", "flash_attn_bwd")),
                                 ("reduced", small["launches"], ("flash_attn", "decode_attn")),
                                 ("gemma-2b", gemma["launches"], ("flash_attn", "decode_attn")),
+                                ("zamba2-7b", zam["launches"],
+                                 ("ssd_scan", "flash_attn", "decode_attn")),
+                                ("qwen3-moe", mixture["launches"], ("flash_attn", "decode_attn")),
                                 ("scan", scanned["launches"], ("seg_agg", "seg_agg_fused")),
                                 ("refresh", refreshed["launches"], ("seg_agg", "seg_agg_fused")),
                                 ("workloads", others["launches"], ("seg_agg_fused",))):

@@ -7,8 +7,10 @@ synthesised from ``--seed``) and a :class:`CacheService` with one tenant
 (``build_tenant`` -> ``register_tenant``): the executor on ``--device``, a
 semantic cache with the dataset's level mapper (so roll-ups can hit) and at
 most ``--capacity`` entries, and an NL canonicalizer: the canonicalizer LLM
-(``--arch``: any ported family, default ``canonicalizer-100m``, or
-``mamba2-780m``; ``--reduced`` for the tiny same-family config) served by
+(``--arch``: any registry config of the four families, default
+``canonicalizer-100m``, e.g. the SSM ``mamba2-780m``, the hybrid
+``zamba2-7b``, the MoE ``qwen3-moe-235b-a22b`` or ``kimi-k2-1t-a32b``;
+``--reduced`` for the tiny same-family config) served by
 :class:`ServingEngine` with weights initialised from ``--seed`` or
 restored from a training checkpoint (``--ckpt-dir``), or with
 ``--simulated-llm`` the calibrated :class:`SimulatedLLM` (no model
@@ -37,6 +39,8 @@ Usage:
     python -m repro_torch.launch.serve --device cpu --reduced
     python -m repro_torch.launch.serve --ckpt-dir ckpts/canon --queries 62
     python -m repro_torch.launch.serve --arch mamba2-780m --queries 62
+    python -m repro_torch.launch.serve --arch zamba2-7b --queries 62
+    python -m repro_torch.launch.serve --device cpu --reduced --arch kimi-k2-1t-a32b
     python -m repro_torch.launch.serve --n-fact 20000 --device cpu --simulated-llm
 """
 from __future__ import annotations
@@ -81,9 +85,11 @@ def restore_params(cfg, ckpt_dir: str, device="cuda"):
     from ..models.convert import params_from_jax
     from ..training.checkpoint import restore_latest
 
-    shapes = cfg.param_shapes()
-    names = {k: ({n: None for n in v[0]} if k == "layers" else None)
-             for k, v in shapes.items()}
+    def leaf_names(v):  # a stack's names are its layers'; a leaf is None
+        v = v[0] if isinstance(v, list) else v
+        return {n: None for n in v} if isinstance(v, dict) else None
+
+    names = {k: leaf_names(v) for k, v in cfg.param_shapes().items()}
     tree, step, extra = restore_latest(ckpt_dir, names, subtree="p")
     if tree is None:
         return None, -1, {}
@@ -220,7 +226,10 @@ def main(argv=None) -> None:
                     help="canonicalize NL with the calibrated SimulatedLLM")
     ap.add_argument("--model", default="gpt-4o-mini",
                     help="SimulatedLLM error profile")
-    ap.add_argument("--arch", default="canonicalizer-100m")
+    ap.add_argument("--arch", default="canonicalizer-100m",
+                    help="the LLM's registry config: dense (canonicalizer-100m, "
+                         "gemma-2b, ...), MoE (qwen3-moe-235b-a22b, kimi-k2-1t-a32b), "
+                         "SSM (mamba2-780m) or hybrid (zamba2-7b)")
     ap.add_argument("--reduced", action="store_true",
                     help="the tiny same-family config of --arch")
     ap.add_argument("--capacity", type=int, default=None,

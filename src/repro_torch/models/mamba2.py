@@ -30,7 +30,7 @@ from ..kernels.ssd_scan.ops import ssd_scan
 from ..kernels.ssd_scan.ref import ssd_decode_step
 from .layers import rmsnorm
 from .model import ModelConfig, init_by_rule
-from .transformer import _inputs, embed_tokens, logits_fn, masked_xent
+from .transformer import _inputs, batch_loss, embed_tokens, logits_fn
 from .transformer import to_device  # noqa: F401  (the family interface the engine calls)
 
 FLOAT32_LEAVES = frozenset({"dt_bias", "a_log", "d_skip"})
@@ -58,13 +58,20 @@ def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0,
     shapes, then JAX's SSD overrides: decay rates a_log = log(linspace(1, 8,
     H)) (A from -1 to -8), dt_bias -2, d_skip 1, all float32."""
     params = init_by_rule(cfg, param_shapes(cfg), generator, device)
-    dev, h, f32 = params["embed"].device, cfg.ssm_heads, torch.float32
+    ssd_overrides(cfg, params["layers"])
+    return params
+
+
+def ssd_overrides(cfg: ModelConfig, layers: list) -> None:
+    """JAX's SSD init of each layer dict in ``layers``, in place, float32 on
+    the layer's device."""
+    h, f32 = cfg.ssm_heads, torch.float32
     a_log = torch.log(torch.linspace(1.0, 8.0, h, dtype=f32))
-    for lp in params["layers"]:
+    for lp in layers:
+        dev = lp["wx"].device
         lp["a_log"] = a_log.to(dev)
         lp["dt_bias"] = torch.full((h,), -2.0, dtype=f32, device=dev)
         lp["d_skip"] = torch.ones(h, dtype=f32, device=dev)
-    return params
 
 
 # ------------------------------------------------------------------ forward
@@ -130,12 +137,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     over labels >= 0, a f32 scalar.  On the card the SSD-scan kernel has no
     backward yet, so a loss under grad raises there (ROADMAP.md Queue 1
     item 1); on the CPU it differentiates the plain scan."""
-    dev = params["embed"].device
-    tokens, emb = batch.get("tokens"), batch.get("embeddings")
-    logits = forward(cfg, params,
-                     tokens=None if tokens is None else torch.as_tensor(tokens, device=dev),
-                     embeddings=None if emb is None else torch.as_tensor(emb, device=dev))
-    return masked_xent(logits, batch["labels"])
+    return batch_loss(forward, cfg, params, batch)
 
 
 # ------------------------------------------------------------------ serving
@@ -161,14 +163,31 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, embeddings=None,
     x = _inputs(cfg, params, tokens, embeddings)
     b, s = x.shape[0], x.shape[1]
     caches = make_cache(cfg, b, cache_len, x.device)
-    k1 = cfg.conv_kernel - 1
     for i, lp in enumerate(params["layers"]):
-        x, state, x_raw = _block(cfg, lp, x, want_state=True)
-        caches["state"][i] = state
-        tail = x_raw[:, -k1:]
-        caches["conv"][i, :, k1 - tail.shape[1]:] = tail
+        x = prefill_layer(cfg, lp, x, caches, i)
     logits = logits_fn(cfg, params, x[:, -1:])
     return logits[:, 0], caches, torch.full((b,), s, dtype=torch.int32, device=x.device)
+
+
+def prefill_layer(cfg: ModelConfig, lp: dict, x, caches: dict, i: int):
+    """Layer ``i`` over the prompt: seeds ``caches["state"][i]`` from the
+    scan's final state and ``caches["conv"][i]`` from the last K-1 rows of
+    the pre-conv stream; returns the layer's output."""
+    k1 = cfg.conv_kernel - 1
+    x, state, x_raw = _block(cfg, lp, x, want_state=True)
+    caches["state"][i] = state
+    tail = x_raw[:, -k1:]
+    caches["conv"][i, :, k1 - tail.shape[1]:] = tail
+    return x
+
+
+def decode_layer(cfg: ModelConfig, lp: dict, x, caches: dict, i: int):
+    """Layer ``i`` for one token: its state and conv buffer in ``caches``
+    written in place; returns the layer's output."""
+    x, state, buf = _block(cfg, lp, x, state=caches["state"][i], conv_buf=caches["conv"][i])
+    caches["state"][i].copy_(state)
+    caches["conv"][i].copy_(buf)
+    return x
 
 
 def decode_step(cfg: ModelConfig, params: dict, token, caches: dict, pos):
@@ -176,9 +195,6 @@ def decode_step(cfg: ModelConfig, params: dict, token, caches: dict, pos):
     conv buffer into ``caches`` in place and returns (logits (B, V), the
     same caches, pos + 1)."""
     x = embed_tokens(cfg, params, token[:, None])
-    states, convs = caches["state"], caches["conv"]
     for i, lp in enumerate(params["layers"]):
-        x, state, buf = _block(cfg, lp, x, state=states[i], conv_buf=convs[i])
-        states[i].copy_(state)
-        convs[i].copy_(buf)
+        x = decode_layer(cfg, lp, x, caches, i)
     return logits_fn(cfg, params, x)[:, 0], caches, pos + 1

@@ -1,13 +1,19 @@
-"""Decoder-only dense transformer: the port of the dense family of the JAX
+"""Decoder-only transformer (dense and MoE families): the port of the JAX
 package's ``repro/models/transformer.py``.
 
 Parameters are a plain dict of tensors on one device, with JAX's names and
-``x @ W`` layout; the JAX stacked (L, ...) layer axis becomes a list of
+``x @ W`` layout; each JAX stacked (L, ...) layer subtree becomes a list of
 per-layer dicts, run in a Python loop:
 
-  {"embed": (V, D), "layers": [{"wq", "wk", "wv", "wo", ["q_norm", "k_norm"],
-   "mlp_w1", ["mlp_w3"], "mlp_w2", "ln1", "ln2"}, ...], "final_norm": (D,),
-   ["lm_head": (D, V)]}
+  {"embed": (V, D), ["dense_layers": [...],] "layers": [{"wq", "wk", "wv",
+   "wo", ["q_norm", "k_norm"], "mlp_w1", ["mlp_w3"], "mlp_w2" | the MoE
+   leaves of ``moe.moe_param_shapes``, "ln1", "ln2"}, ...],
+   "final_norm": (D,), ["lm_head": (D, V)]}
+
+An MoE config's ``layers`` hold the experts (``moe_w1`` (E_shards, E_local,
+D, F), ``router`` (D, E) float32, ...) and its first ``dense_layers``
+layers, a stack of their own, a dense FFN of width max(d_ff, 4 d_model),
+as in JAX.  A block whose dict has ``moe_w1`` runs ``moe.moe_ffn``.
 
 The device is the parameters' device: ``init_params`` puts them on
 ``device`` (``cuda`` unless the caller asks for the CPU), and every
@@ -15,7 +21,8 @@ function computes where its parameters live.  The same code serves:
 
   * ``forward``     — full-sequence logits (B, S, V),
   * ``loss_fn``     — the training loss over a batch of tokens and labels,
-  * ``prefill``     — a forward that seeds preallocated KV caches,
+  * ``prefill``     — a forward that seeds preallocated KV caches (one
+    (k, v) pair per stack: ``"dense_layers"`` beside ``"layers"``),
   * ``decode_step`` — one token against those caches, written in place.
 
 Audio/VLM archs (musicgen/pixtral) set ``embed_inputs=True``: prefill and
@@ -26,28 +33,38 @@ from __future__ import annotations
 import torch
 
 from .layers import attention, attn_param_shapes, mlp, mlp_param_shapes, rmsnorm
-from .model import ModelConfig, init_by_rule
+from .model import STACKS, ModelConfig, init_by_rule, tree_map
+from .moe import expert_shards, moe_ffn, moe_param_shapes
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    if cfg.kind != "dense":
-        raise NotImplementedError(f"{cfg.kind!r} is not ported yet (ROADMAP.md, "
-                                  "Queue 1 item 5)")
-    layer = {**attn_param_shapes(cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
-                                 cfg.qk_norm),
-             **{f"mlp_{k}": v for k, v in
-                mlp_param_shapes(cfg.d_model, cfg.d_ff, cfg.activation).items()},
-             "ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
-    out = {"embed": (cfg.vocab, cfg.d_model),
-           "layers": [dict(layer) for _ in range(cfg.n_layers)],
-           "final_norm": (cfg.d_model,)}
+    attn = attn_param_shapes(cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd, cfg.qk_norm)
+    norms = {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
+
+    def dense_block(d_ff):
+        return {**attn, **{f"mlp_{k}": v for k, v in
+                           mlp_param_shapes(cfg.d_model, d_ff, cfg.activation).items()},
+                **norms}
+
+    out: dict = {"embed": (cfg.vocab, cfg.d_model)}
+    if cfg.kind == "moe":
+        if cfg.dense_layers:
+            # the leading dense layers take a wider FFN: 4 d_model where
+            # d_ff is the per-expert width
+            dense_ff = max(cfg.d_ff, 4 * cfg.d_model)
+            out["dense_layers"] = [dense_block(dense_ff) for _ in range(cfg.dense_layers)]
+        mblock = {**attn, **moe_param_shapes(cfg, expert_shards(cfg)), **norms}
+        out["layers"] = [dict(mblock) for _ in range(cfg.n_layers - cfg.dense_layers)]
+    else:
+        out["layers"] = [dense_block(cfg.d_ff) for _ in range(cfg.n_layers)]
+    out["final_norm"] = (cfg.d_model,)
     if not cfg.tie_embeddings:
         out["lm_head"] = (cfg.d_model, cfg.vocab)
     return out
 
 
-# leaves that stay float32 whatever ``cfg.dtype`` is (none in this family)
-FLOAT32_LEAVES: frozenset = frozenset()
+# leaves that stay float32 whatever ``cfg.dtype`` is: the MoE router
+FLOAT32_LEAVES: frozenset = frozenset({"router"})
 
 
 def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0,
@@ -58,9 +75,12 @@ def init_params(cfg: ModelConfig, generator: "torch.Generator | int" = 0,
 
 def to_device(params: dict, device) -> dict:
     """The same parameters on ``device``."""
-    return {k: ([{n: t.to(device) for n, t in lp.items()} for lp in v]
-                if k == "layers" else v.to(device))
-            for k, v in params.items()}
+    return tree_map(lambda t: t.to(device), params)
+
+
+def _stacks(params: dict) -> list[str]:
+    """The layer stacks that hold a layer, in the order they run."""
+    return [k for k in STACKS if params.get(k)]
 
 
 # ------------------------------------------------------------------ forward
@@ -74,14 +94,20 @@ def _block(cfg: ModelConfig, lp: dict, x, kv_cache=None, cache_pos=None):
         rope_fraction=cfg.rope_fraction, kv_cache=kv_cache, cache_pos=cache_pos,
     )
     x = x + h
-    h = mlp({k[4:]: v for k, v in lp.items() if k.startswith("mlp_")},
-            rmsnorm(x, lp["ln2"]), cfg.activation)
+    hin = rmsnorm(x, lp["ln2"])
+    if "moe_w1" in lp:
+        h = moe_ffn(lp, hin, cfg)
+    else:
+        h = mlp({k[4:]: v for k, v in lp.items() if k.startswith("mlp_")},
+                hin, cfg.activation)
     return x + h, kv
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens):
     x = params["embed"][tokens.long()].to(cfg.dtype)
-    return x * (cfg.d_model ** 0.5) if cfg.name.startswith("gemma") else x
+    if cfg.kind in ("dense", "moe") and cfg.name.startswith("gemma"):
+        x = x * (cfg.d_model ** 0.5)
+    return x
 
 
 def logits_fn(cfg: ModelConfig, params: dict, x):
@@ -99,8 +125,9 @@ def _inputs(cfg, params, tokens, embeddings):
 def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None):
     """Scoring forward -> logits (B, S, V) in f32."""
     x = _inputs(cfg, params, tokens, embeddings)
-    for lp in params["layers"]:
-        x, _ = _block(cfg, lp, x)
+    for stack in _stacks(params):
+        for lp in params[stack]:
+            x, _ = _block(cfg, lp, x)
     return logits_fn(cfg, params, x)
 
 
@@ -114,26 +141,39 @@ def masked_xent(logits, labels):
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
+def batch_loss(forward_fn, cfg: ModelConfig, params: dict, batch: dict):
+    """``masked_xent`` of ``forward_fn``'s logits over ``batch``, whose
+    numpy arrays or tensors are moved to the parameters' device."""
+    dev = params["embed"].device
+    tokens, emb = batch.get("tokens"), batch.get("embeddings")
+    logits = forward_fn(cfg, params,
+                        tokens=None if tokens is None else torch.as_tensor(tokens, device=dev),
+                        embeddings=None if emb is None else torch.as_tensor(emb, device=dev))
+    return masked_xent(logits, batch["labels"])
+
+
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """batch: {"tokens" or "embeddings", "labels"} (numpy arrays or
     tensors) -> the mean cross-entropy over labels >= 0, a f32 scalar."""
-    dev = params["embed"].device
-    tokens, emb = batch.get("tokens"), batch.get("embeddings")
-    logits = forward(cfg, params,
-                     tokens=None if tokens is None else torch.as_tensor(tokens, device=dev),
-                     embeddings=None if emb is None else torch.as_tensor(emb, device=dev))
-    return masked_xent(logits, batch["labels"])
+    return batch_loss(forward, cfg, params, batch)
 
 
 # ------------------------------------------------------------------ serving
 
 
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
-    """Preallocated zero KV caches {"layers": (k, v)}, each
-    (L, B, Hkv, cache_len, Dh) in ``cfg.dtype`` on ``device``."""
-    shape = (cfg.n_layers, batch, cfg.kv_heads, cache_len, cfg.hd)
-    return {"layers": (torch.zeros(shape, dtype=cfg.dtype, device=device),
-                       torch.zeros(shape, dtype=cfg.dtype, device=device))}
+    """Preallocated zero KV caches, one (k, v) pair per stack: {"layers":
+    (k, v)} and, for an MoE config with leading dense layers,
+    "dense_layers"; each (L_stack, B, Hkv, cache_len, Dh) in ``cfg.dtype``
+    on ``device``."""
+    n_dense = cfg.dense_layers if cfg.kind == "moe" else 0
+    out = {}
+    for stack, n in (("dense_layers", n_dense), ("layers", cfg.n_layers - n_dense)):
+        if n:
+            shape = (n, batch, cfg.kv_heads, cache_len, cfg.hd)
+            out[stack] = (torch.zeros(shape, dtype=cfg.dtype, device=device),
+                          torch.zeros(shape, dtype=cfg.dtype, device=device))
+    return out
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens=None, embeddings=None,
@@ -143,11 +183,12 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, embeddings=None,
     x = _inputs(cfg, params, tokens, embeddings)
     b, s = x.shape[0], x.shape[1]
     caches = make_cache(cfg, b, max(cache_len, s), x.device)
-    ks, vs = caches["layers"]
-    for i, lp in enumerate(params["layers"]):
-        x, (k, v) = _block(cfg, lp, x)
-        ks[i, :, :, :s] = k
-        vs[i, :, :, :s] = v
+    for stack in _stacks(params):
+        ks, vs = caches[stack]
+        for i, lp in enumerate(params[stack]):
+            x, (k, v) = _block(cfg, lp, x)
+            ks[i, :, :, :s] = k
+            vs[i, :, :, :s] = v
     logits = logits_fn(cfg, params, x[:, -1:])
     return logits[:, 0], caches, torch.full((b,), s, dtype=torch.int32, device=x.device)
 
@@ -157,7 +198,8 @@ def decode_step(cfg: ModelConfig, params: dict, token, caches: dict, pos):
     Writes the step's K/V into ``caches`` in place and returns
     (logits (B, V), the same caches, pos + 1)."""
     x = embed_tokens(cfg, params, token[:, None])
-    ks, vs = caches["layers"]
-    for i, lp in enumerate(params["layers"]):
-        x, _ = _block(cfg, lp, x, kv_cache=(ks[i], vs[i]), cache_pos=pos)
+    for stack in _stacks(params):
+        ks, vs = caches[stack]
+        for i, lp in enumerate(params[stack]):
+            x, _ = _block(cfg, lp, x, kv_cache=(ks[i], vs[i]), cache_pos=pos)
     return logits_fn(cfg, params, x)[:, 0], caches, pos + 1

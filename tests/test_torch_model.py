@@ -11,8 +11,11 @@
   (XLA keeps float32 inside fused elementwise chains, PyTorch rounds after
   each op), and at S = 32 that rounding alone moves either side's logits
   as far as 5e-2 from the float32 result;
-* the MoE and hybrid families are not ported and say so (the SSM family
-  is held to JAX in ``tests/test_torch_mamba2.py``).
+* ``params_from_jax`` -> ``params_to_jax`` bit for bit for the reduced MoE
+  and hybrid configs, and their parameter counts against JAX's (the
+  families themselves are held to JAX in ``tests/test_torch_moe.py``,
+  ``tests/test_torch_zamba2.py`` and, the SSM family,
+  ``tests/test_torch_mamba2.py``).
 """
 import dataclasses
 
@@ -25,7 +28,7 @@ import torch
 from repro.configs import registry as jreg
 from repro_torch.configs import registry as treg
 from repro_torch.models import transformer as tt
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, params_to_jax
 
 DENSE = [n for n, c in jreg.CONFIGS.items() if c.kind == "dense"]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -178,11 +181,37 @@ def test_decode_past_the_cache_drops_the_write_as_jax_does():
     assert torch.equal(tc["layers"][0], before)
 
 
-@pytest.mark.parametrize("name", [n for n, c in jreg.CONFIGS.items()
-                                  if c.kind in ("moe", "hybrid")])
-def test_other_families_are_not_ported_yet(name):
-    cfg = treg.reduced(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.param_shapes()
+NEW_FAMILIES = [n for n, c in jreg.CONFIGS.items() if c.kind in ("moe", "hybrid")]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_new_families_round_trip_through_the_jax_layout(name, dtype):
+    """JAX's init converted and converted back: every leaf bit for bit, in
+    its JAX dtype (the MoE router and Mamba2's vectors float32), with the
+    JAX tree's structure and shapes."""
+    jd, td = DTYPES[dtype]
+    jcfg, jp = _jax_params(name, jd)
+    tcfg = dataclasses.replace(treg.reduced(name), dtype=td)
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    back = params_to_jax(tcfg, tp)
+    assert jax.tree.structure(jax.tree.map(lambda a: 0, back)) == \
+        jax.tree.structure(jax.tree.map(lambda a: 0, jp))
+    for (path, want), got in zip(jax.tree_util.tree_leaves_with_path(jp),
+                                 jax.tree.leaves(back)):
+        assert str(got.dtype).removeprefix("torch.") == jnp.dtype(want.dtype).name, path
+        assert tuple(got.shape) == want.shape, path
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32),
+                                      err_msg=str(path))
+    mod = tcfg.build()  # the family interface the engine and the launchers call
+    for f in ("param_shapes", "init_params", "forward", "loss_fn", "prefill", "decode_step",
+              "make_cache", "to_device", "FLOAT32_LEAVES"):
+        assert hasattr(mod, f), f
+
+
+@pytest.mark.parametrize("name", list(jreg.CONFIGS))
+def test_param_counts_match_jax(name):
+    j, t = jreg.get(name), treg.get(name)
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
+    assert treg.reduced(name).param_count() == jreg.reduced(name).param_count()
