@@ -218,16 +218,21 @@ Phases, in order; any failed check raises and the script exits non-zero:
              timed beside its byte bound: the table, with launches by
              phase, and launches x (ms - bound) by phase.
 13. train  — the backward of flash_attn (``flash_attn_bwd.cu``, new: no
-             Pallas kernel has one), after its forward's output is held to
-             ``mha_ref`` (``ATTN_TOL``), held to ``mha_bwd_ref`` on the inputs'
-             exact float32 values (``BWD_TOL``: float32 1e-3; bfloat16
-             rtol 1e-2, atol 2e-2), two calls bit for bit, at the training
-             shape (q (16,12,192,64), k/v (16,4,192,64)) in both dtypes, at
-             head dims 64 and 128 over the forward sweep's GQA groups and S,
-             and at every other built head dim (``HEAD_DIM_HEADS``), causal
-             and not; then timed at the training shape beside its plain
-             version, the backward of SDPA and its bound.  Then
-             canonicalizer-100m at full width and depth trained through
+             Pallas kernel has one; bf16 on the tensor cores), after its
+             forward's output is held to ``mha_ref`` (``ATTN_TOL``), held to
+             ``mha_bwd_ref`` on the inputs' exact float32 values
+             (``BWD_TOL``: float32 1e-3; bfloat16 rtol 1e-2, atol 2e-2), two
+             calls bit for bit, at the training shape (q (16,12,192,64), k/v
+             (16,4,192,64)) in both dtypes, at head dims 64 and 128 over the
+             forward sweep's GQA groups and S, and at every other built head
+             dim (``HEAD_DIM_HEADS``), causal and not; then timed at the
+             training shape and at ``BWD_MORE``'s (qwen3-moe's 64/4 heads of
+             128, zamba2-7b's 32/32 of 112) beside its plain version, the
+             backward of SDPA and its bound.  Then reduced kimi-k2-1t-a32b
+             (a dense and an MoE layer) trained 2 steps on the card:
+             finite losses, one launch of each attention kernel per layer
+             per step, a step repeated from the same state bit for bit
+             (``moe_train_check``).  Then canonicalizer-100m at full width and depth trained through
              ``train_lib.train`` as examples/train_canonicalizer.py --full
              does (SSB pairs, batch 16, sequence 192, checkpoints every 50
              steps, in a temporary directory): after one step's backward
@@ -428,7 +433,8 @@ def build_info(names=("flash_attn", "flash_attn_bwd", "decode_attn", "ssd_scan",
     shared memory as ``ptxas -v`` reported them in the build log, and the
     count of HMMA (tensor-core) instructions in its SASS where
     ``cuobjdump`` is installed (None where it is not).  Fails if a bf16
-    flash or an SSD-scan instance has none (tf32 products are HMMA too)."""
+    flash instance (forward or backward) or an SSD-scan instance has none
+    (tf32 products are HMMA too)."""
     import re
     import shutil
 
@@ -450,9 +456,10 @@ def build_info(names=("flash_attn", "flash_attn_bwd", "decode_attn", "ssd_scan",
                 cur["hmma"] = 0
             elif cur is not None and "HMMA" in line:
                 cur["hmma"] += 1
-    tensor_core = [i for i in info if i.startswith(("flash_attn_bf16_kernel",
-                                                     "ssd_scan_kernel"))]
-    if len(tensor_core) < 3:
+    tensor_core = [i for i in info if i.startswith((
+        "flash_attn_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkdv_bf16_kernel",
+        "ssd_scan_kernel"))]
+    if len(tensor_core) < 4:
         raise AssertionError(f"no bf16 flash or SSD-scan instance among {sorted(info)}")
     for inst, row in info.items():
         row.setdefault("hmma", None)
@@ -2643,11 +2650,12 @@ def workloads_phase(ssb_wl, ssb_oracle, seed: int) -> dict:
 
 # (rtol, atol) of the backward kernel against ``mha_bwd_ref`` on the inputs'
 # exact float32 values.  float32: only the order of f32 sums differs.
-# bfloat16: the kernel does the f32 arithmetic but takes D = rowsum(dO * O)
-# from the forward's bf16 output and rounds dq, dk, dv once (2**-9
-# relative); at the training shape the plain rehearsal of that arithmetic
-# (``flash_bwd_tiled_ref``) lies 0.0066 past rtol 1e-2 on gradients up to
-# 10, and a lost tile would be off by whole units
+# bfloat16: the products take bf16 operands (exact) with P and dS split into
+# bf16 hi + lo (~16 bits), D = rowsum(dO * O) comes from the forward's bf16
+# output, and dq, dk, dv are rounded once (2**-9 relative); at the training
+# shapes the plain rehearsal of that arithmetic (``flash_bwd_tiled_ref``)
+# lies up to 0.012 past rtol 1e-2 on gradients up to 20 (P and dS as bf16
+# hi alone: 0.025), and a lost tile would be off by whole units
 BWD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-2, 2e-2)}
 # examples/train_canonicalizer.py --full, the reference's production path
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 16, 192, 300, 50
@@ -2711,8 +2719,14 @@ def _bwd_work(b: int, h: int, hkv: int, s: int, dh: int) -> dict:
             "ops": 10 * b * h * (s * (s + 1) // 2) * dh}
 
 
-def bwd_times(dev, gen, iters: int) -> dict:
-    """The bf16 backward kernel at the training shape: checked, then kernel,
+# the backward's shapes beside the training shape (q (16,12,192,64), k/v
+# (16,4,192,64)): qwen3-moe-235b-a22b's attention (64/4 heads of 128) and
+# zamba2-7b's shared block (32/32 heads of 112), at the same batch and S
+BWD_MORE = ((64, 4, 128), (32, 32, 112))
+
+
+def _bwd_at(dev, gen, b, h, hkv, s, dh, iters: int) -> dict:
+    """The bf16 backward kernel at one causal shape: checked, then kernel,
     plain version and the backward of SDPA (``torch.autograd.grad`` of its
     output, the forward run before the timing) timed, with the bound."""
     import torch
@@ -2720,7 +2734,6 @@ def bwd_times(dev, gen, iters: int) -> dict:
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn import ref as FR
 
-    b, h, hkv, s, dh = TRAIN_BATCH, 12, 4, TRAIN_SEQ, 64
     bf = torch.bfloat16
     q, do = (torch.randn(b, h, s, dh, generator=gen, device=dev).to(bf) for _ in range(2))
     k, v = (torch.randn(b, hkv, s, dh, generator=gen, device=dev).to(bf) for _ in range(2))
@@ -2731,13 +2744,79 @@ def bwd_times(dev, gen, iters: int) -> dict:
     def sdpa_bwd():
         return torch.autograd.grad(out, leaves, do, retain_graph=True)
 
-    err = _bwd_check(dev, gen, b, h, hkv, s, dh, bf, True, "flash_bwd main path")
+    err = _bwd_check(dev, gen, b, h, hkv, s, dh, bf, True, f"flash_bwd dh {dh} {h}/{hkv}")
     return with_bound({
         "shape": f"q ({b},{h},{s},{dh}) k/v ({b},{hkv},{s},{dh}) bf16 causal",
         "max_abs_err": err,
         **timed((FK.flash_attention_bwd_cuda, (q, k, v, o, do)),
                 (FR.mha_bwd_ref, (q, k, v, do)), (sdpa_bwd, ()), iters),
         **_bwd_work(b, h, hkv, s, dh)}, BF16_OPS_PER_S)
+
+
+def bwd_times(dev, gen, iters: int) -> dict:
+    """The bf16 backward kernel at the training shape (``_bwd_at``), and in
+    ``more`` at ``BWD_MORE``'s shapes."""
+    import torch
+
+    main = _bwd_at(dev, gen, TRAIN_BATCH, 12, 4, TRAIN_SEQ, 64, iters)
+    main["more"] = [_bwd_at(dev, gen, TRAIN_BATCH, h, hkv, TRAIN_SEQ, dh, iters)
+                    for h, hkv, dh in BWD_MORE]
+    torch.cuda.synchronize()
+    return main
+
+
+MOE_TRAIN_STEPS = 2  # steps of reduced kimi-k2-1t-a32b trained on the card
+
+
+def moe_train_check(seed: int, batches) -> dict:
+    """``reduced("kimi-k2-1t-a32b")`` (a dense layer, then an MoE layer;
+    bf16, the head widened to the tokenizer) trained ``MOE_TRAIN_STEPS``
+    steps on the card through ``train_lib.train``: every logged loss
+    finite, one ``flash_attn`` and one ``flash_attn_bwd`` per attention
+    layer per step; then one train step run twice from the same state
+    gives the same loss, norm, parameters and moments bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import reduced
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tt
+    from repro_torch.training.checkpoint import flatten_with_paths
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_lib import TrainConfig, checkpoint_tree, make_train_step, train
+
+    base = reduced("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(base, vocab=max(base.vocab, batches.tok.vocab_size))
+    params = tt.init_params(cfg, seed, device="cuda")
+    tcfg = TrainConfig(steps=MOE_TRAIN_STEPS, log_every=1)
+    logs: list[str] = []
+    reset_launch_counts()
+    out = train(cfg, tcfg, batches, params=params, log=logs.append)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != MOE_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"kimi-k2 (reduced) losses {losses}")
+    want = cfg.n_layers * MOE_TRAIN_STEPS
+    if (launches["flash_attn"], launches["flash_attn_bwd"]) != (want, want):
+        raise AssertionError(f"kimi-k2 (reduced): {MOE_TRAIN_STEPS} steps launched "
+                             f"{dict(launches)}, not {want} of each")
+    step_fn = make_train_step(cfg, tcfg)
+    runs = [step_fn(params, init_opt_state(params), batches.batch_at(0)) for _ in range(2)]
+    for i, what in ((0, "loss"), (1, "gnorm")):
+        if not torch.equal(runs[0][i], runs[1][i]):
+            raise AssertionError(f"kimi-k2 (reduced): a repeated step's {what} differs")
+    trees = [flatten_with_paths(checkpoint_tree(cfg, r[2], r[3])) for r in runs]
+    for (name, a), (_, b) in zip(*trees):
+        if not (torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b)):
+            raise AssertionError(f"kimi-k2 (reduced): a repeated step's {name} differs")
+    return {"config": {k: getattr(cfg, k) for k in (
+                "n_layers", "dense_layers", "d_model", "n_heads", "kv_heads", "n_experts",
+                "top_k", "vocab")},
+            "losses": losses, "launches": dict(launches), "leaves": len(trees[0]),
+            "repeat_bit_identical": True}
 
 
 class RecordingBatches:
@@ -2836,6 +2915,7 @@ def train_phase(wl, oracle, seed: int, dev, gen, iters: int) -> dict:
     tok = build_tokenizer([small])
     batches = BatchIterator(build_pairs([small], paraphrases_per_intent=24), tok,
                             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    moe = moe_train_check(seed, batches)
     params = tt.init_params(cfg, seed, device="cuda")
     n_params = sum(t.numel() for _, t in flatten_with_paths(params_to_jax(cfg, params)))
 
@@ -2948,7 +3028,7 @@ def train_phase(wl, oracle, seed: int, dev, gen, iters: int) -> dict:
                     "vocab")},
                 "params": n_params, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
                 "steps": TRAIN_STEPS, "pairs": len(batches.pairs),
-                "bwd_checks_s": checks_s, "first_loss": float(loss0),
+                "bwd_checks_s": checks_s, "moe_train": moe, "first_loss": float(loss0),
                 "losses": [(h["step"], round(h["loss"], 4)) for h in history],
                 "resumed": resumed[0],
                 "launches_per_step": {"flash_attn": per_step["flash_attn"],
@@ -3281,6 +3361,12 @@ def main(argv=None) -> int:
     errs["flash_attn_bwd"] = max(*bwd["sweep"].values(), bwd["times"]["max_abs_err"])
     times["flash_attn_bwd"] = bwd["times"]
     t = bwd["times"]
+    for r in t["more"]:
+        errs["flash_attn_bwd"] = max(errs["flash_attn_bwd"], r["max_abs_err"])
+        print(f"[train] flash_attn_bwd {r['shape']}: device ms per call: kernel "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}; "
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']}); max abs err "
+              f"{r['max_abs_err']:.3g}; card: {card}")
     print(f"[train] flash_attn_bwd {t['shape']}: device ms per call: kernel {t['ms']:.4f}, "
           f"plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}; bound "
           f"{t['bound_ms']:.5f} ({t['bound_by']}); max abs err by dtype over the sweep "

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import statistics
 import subprocess
+import warnings
 from pathlib import Path
 
 import torch
@@ -36,18 +37,21 @@ def variant_source(src: Path, edits: list[tuple[str, str]]) -> str:
     return text
 
 
-def build_variants(src: Path, parts: dict[str, list[tuple[str, str]]],
-                   names) -> dict[str, ctypes.CDLL]:
+def build_variants(src: Path, parts: dict[str, list[tuple[str, str]]], names,
+                   units=((),), common: list[tuple[str, str]] = ()) -> dict[str, ctypes.CDLL]:
     """One library per name (None: the full kernel), built in parallel into
-    ``build/kernels/ablation/<source>/<name>/``."""
+    ``build/kernels/ablation/<source>/<name>/``: the source with ``common``'s
+    edits and the part's, compiled once per tuple of -D flags in ``units``
+    and linked."""
     jobs = {}
     for part in names:
         name = part or "full"
         out = build.BUILD_DIR / "ablation" / src.stem / name
         out.mkdir(parents=True, exist_ok=True)
-        (out / src.name).write_text(variant_source(src, parts.get(part, [])))
+        (out / src.name).write_text(variant_source(src, [*common, *parts.get(part, [])]))
         so = out / f"lib{src.stem}.so"
-        jobs[name] = (build.Job([(out / src.name, ())], so, f"ablation {name}"), so)
+        jobs[name] = (build.Job([(out / src.name, flags) for flags in units], so,
+                                f"ablation {name}"), so)
     libs = {}
     for name, (job, so) in jobs.items():
         job.finish()
@@ -80,7 +84,8 @@ def device_ms(fn, iters: int, args=(), warmup: int = 2) -> float:
     ~25 ms of device work before the first call and after the last take
     their place; a call with no traced time is dropped.  A session that
     traced fewer than half the calls is run again, up to ``SESSIONS`` in
-    all; then it fails."""
+    all; after that the calls are timed by CUDA events (``_event_calls``),
+    with a warning."""
     buf = torch.ones((FLUSH_BYTES // 4096, 4096), dtype=torch.int8,
                      device=torch.cuda.current_device())
     for _ in range(warmup):
@@ -91,8 +96,9 @@ def device_ms(fn, iters: int, args=(), warmup: int = 2) -> float:
         traced = _traced_calls(fn, iters, args, buf)
         if len(traced) >= iters / 2:
             return statistics.median(traced)
-    raise RuntimeError(f"the profiler traced device time for {len(traced)} of {iters} calls "
-                       f"in each of {SESSIONS} sessions")
+    warnings.warn(f"device_ms: the profiler traced device time for {len(traced)} of {iters} "
+                  f"calls in each of {SESSIONS} sessions; timed by CUDA events instead")
+    return statistics.median(_event_calls(fn, iters, args, buf))
 
 
 SESSIONS = 3  # profiler sessions device_ms runs before it gives up
@@ -121,6 +127,24 @@ def _traced_calls(fn, iters: int, args, buf) -> list[float]:
         elif calls:
             calls[-1] += e.time_range.elapsed_us() / 1e3
     return [ms for ms in calls if ms > 0.0]
+
+
+def _event_calls(fn, iters: int, args, buf) -> list[float]:
+    """The device ms of each of ``iters`` flushed calls, between two CUDA
+    events recorded around the call after its flush: the flush (~0.13 ms)
+    keeps the card busy while the host enqueues the call, so the span holds
+    the call's kernels and not the host's launch gaps, as long as the call
+    enqueues faster than the flush runs."""
+    spans = []
+    for _ in range(iters):
+        buf.amax(dim=1)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn(*args)
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in spans]
 
 
 def card() -> str:

@@ -19,8 +19,12 @@ current stream, raises on a launch error and counts each launch as
 ``flash_attention_bwd_cuda`` is its backward (``csrc/flash_attn_bwd.cu``,
 new in the port: no Pallas kernel has one, and the JAX package
 differentiates ``mha_ref``): dq, dk, dv from q, k, v, the forward's output
-and its gradient, each launch counted as ``flash_attn_bwd``.  Its plain
-version is ``ref.mha_bwd_ref``.
+and its gradient, each launch counted as ``flash_attn_bwd``.  In bfloat16
+every product runs on the tensor cores in two kernels (dQ with each row's
+logsumexp, then dK and dV), with P and dS split into bf16 hi + lo
+(``ref.flash_bwd_tiled_ref`` is the same arithmetic in plain PyTorch);
+float32 multiplies on the CUDA cores.  Its plain version is
+``ref.mha_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -120,7 +124,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
-    stats = torch.empty((2, b * h * s), dtype=torch.float32, device=dev)  # lse, D
+    stats = torch.empty((2, b * h * s), dtype=torch.float32, device=dev)  # lse, D per row
     lib = _lib_bwd()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

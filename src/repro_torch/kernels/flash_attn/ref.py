@@ -9,7 +9,8 @@ bf16 decode kernel shares), so that the CPU tests can hold that arithmetic
 to ``mha_ref`` and to the Pallas kernel; nothing on the serving path calls
 it.  ``mha_bwd_ref`` is the gradient of ``mha_ref``, written out: the
 plain version of the backward kernel (``csrc/flash_attn_bwd.cu``), which
-``ops.FlashAttention`` launches on the card."""
+``ops.FlashAttention`` launches on the card; ``flash_bwd_tiled_ref``
+repeats that kernel's arithmetic."""
 from __future__ import annotations
 
 import math
@@ -129,43 +130,68 @@ def tiled_attention(q, k, v, kmax, scale: float | None = None, block_k: int = 64
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def bf16_split(x):
+    """``x`` (f32) as two bf16 values: hi = bf16(x), lo = bf16(x - hi),
+    returned as f32 tensors; hi + lo keeps ~16 significant bits of x."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
 def flash_bwd_tiled_ref(q, k, v, o, do, causal: bool = True, scale: float | None = None,
-                        block: int | None = None):
+                        block: int | None = None, split: bool = True):
     """``mha_bwd_ref``'s function with the arithmetic of ``csrc/
-    flash_attn_bwd.cu``: every value widened to f32, q scaled before the
-    products; each row's logsumexp by an online max and sum over tiles of
-    ``block`` keys (64 up to head dim 128, else 32, as the kernel tiles);
-    D = rowsum(dO * O) from the forward's output ``o`` as given (rounded
-    to its dtype); P = exp(s - lse); dK, dV summed over the group and the
-    query tiles in f32; one rounding to the inputs' dtype."""
+    flash_attn_bwd.cu``.  Returns the inputs' dtypes.
+
+    bfloat16 inputs take the tensor-core kernels' steps: the logits are the
+    bf16 products (exact in f32) summed in f32 and scaled after the product
+    by scale * log2(e); each row's logsumexp (in log2 units) by an online
+    max and sum over tiles of ``block`` keys (64) with exp2; D = rowsum(dO * O)
+    from the forward's output ``o`` as given (rounded to its dtype);
+    P = exp2(s - lse), dP = dO V^T from bf16 products, dS = P (dP - D) in
+    f32; P and dS enter dV = P^T dO, dK = dS^T q and dQ = dS K as bf16, each
+    split into hi + lo (``bf16_split``; ``split=False``: hi alone), and dK,
+    dQ are scaled after the product.  float32 inputs take the CUDA-core
+    kernels' steps: every value in f32, q scaled before the products, the
+    logsumexp over tiles of ``block`` keys (64 up to head dim 128, 32 past
+    it) with exp."""
     b, h, s, dh = q.shape
     hkv = k.shape[1]
     group = h // hkv
     scale = scale if scale is not None else dh ** -0.5
-    block = block or (32 if dh > 128 else 64)
-    qf = q.to(torch.float32) * scale
+    bf16 = q.dtype == torch.bfloat16
+    block = block or (32 if dh > 128 and not bf16 else 64)
+    qf = q.to(torch.float32) if bf16 else q.to(torch.float32) * scale
     kf = k.to(torch.float32).repeat_interleave(group, dim=1)
     vf = v.to(torch.float32).repeat_interleave(group, dim=1)
     dof = do.to(torch.float32)
+    exp, log = (torch.exp2, torch.log2) if bf16 else (torch.exp, torch.log)
+    mul = scale * LOG2E if bf16 else 1.0
     rows = torch.arange(s, device=q.device)[:, None]
     m = torch.full((b, h, s, 1), -1e30, device=q.device)
     l = torch.zeros((b, h, s, 1), device=q.device)
     for t0 in range(0, s, block):
-        logits = qf @ kf[:, :, t0:t0 + block].transpose(-1, -2)
+        logits = (qf @ kf[:, :, t0:t0 + block].transpose(-1, -2)) * mul
         cols = t0 + torch.arange(logits.shape[-1], device=q.device)
         if causal:
             logits = logits.masked_fill(cols > rows, -1e30)
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
-        l = l * torch.exp(m - m_new) + torch.exp(logits - m_new).sum(dim=-1, keepdim=True)
+        l = l * exp(m - m_new) + exp(logits - m_new).sum(dim=-1, keepdim=True)
         m = m_new
-    lse = m + torch.log(l)
+    lse = m + log(l)
     d = (dof * o.to(torch.float32)).sum(dim=-1, keepdim=True)
-    logits = qf @ kf.transpose(-1, -2)
-    p = torch.exp(logits - lse)
+    p = exp((qf @ kf.transpose(-1, -2)) * mul - lse)
     if causal:
         p = p.masked_fill(torch.arange(s, device=q.device) > rows, 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - d)
-    dq = (ds @ kf) * scale
-    dk = (ds.transpose(-1, -2) @ qf).reshape(b, hkv, group, s, dh).sum(dim=2)
-    dv = (p.transpose(-1, -2) @ dof).reshape(b, hkv, group, s, dh).sum(dim=2)
+
+    def product(a, bmat):  # a @ bmat with a entering as bf16 (hi + lo)
+        if not bf16:
+            return a @ bmat
+        hi, lo = bf16_split(a)
+        return hi @ bmat + lo @ bmat if split else hi @ bmat
+
+    dq = product(ds, kf) * scale
+    dk = product(ds.transpose(-1, -2), qf) * (scale if bf16 else 1.0)  # f32: q pre-scaled
+    dk = dk.reshape(b, hkv, group, s, dh).sum(dim=2)
+    dv = product(p.transpose(-1, -2), dof).reshape(b, hkv, group, s, dh).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -13,12 +13,17 @@ the port keeps one tensor per layer.  Two rules follow the stacked leaf,
 so that both packages give the same parameters after every step:
 
 * weight decay goes on every leaf that is at least 2-D once stacked: every
-  matrix, and every per-layer vector (``ln1``, ``ln2``: (L, D) stacked),
-  but not ``final_norm`` (D,);
+  matrix, and every per-layer vector of any stack (``ln1``, ``ln2``: (L, D)
+  stacked), but not ``final_norm`` (D,) nor the vectors of Zamba2's
+  unstacked ``shared_attn``;
 * ``compress_grads`` takes one int8 scale per stacked leaf: the largest
   magnitude over all layers of that parameter.
 
-A tree is the port's: {name: tensor, ..., "layers": [{name: tensor}, ...]}.
+A tree is the port's parameter tree of any family (``models/model.py``):
+each stack of ``STACKS`` (``dense_layers``, ``layers``, ``mamba``) a list
+of per-layer dicts, any other dict (``shared_attn``) a dict of tensors,
+every other value a tensor.  ``stacked_leaves`` lists its leaves in JAX's
+flattening order: top-level keys sorted, names sorted inside each key.
 The optimizer state is {"m": tree, "v": tree, "step": int}.  The ZeRO-1
 specs of the reference (``zero1_spec``, ``opt_state_specs``) wait for the
 port's distribution (ROADMAP.md Queue 1).
@@ -26,9 +31,10 @@ port's distribution (ROADMAP.md Queue 1).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
 
 import torch
+
+from ..models.model import STACKS, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,31 +50,32 @@ class AdamWConfig:
 
 def stacked_leaves(tree: dict) -> list[tuple[str, list]]:
     """(name, tensors) per leaf of the JAX package's stacked tree, in JAX's
-    order (sorted keys): one tensor for a top-level leaf, one per layer for
-    a per-layer leaf (``layers/<name>``)."""
+    order (sorted keys, then sorted names): one tensor for a top-level leaf
+    or a leaf of an unstacked dict (``shared_attn/<name>``), one per layer
+    for a leaf of a stack (``<stack>/<name>``)."""
     out = []
     for k in sorted(tree):
-        if k == "layers":
-            for n in sorted(tree["layers"][0]):
-                out.append((f"layers/{n}", [lp[n] for lp in tree["layers"]]))
+        v = tree[k]
+        if k in STACKS:
+            out += [(f"{k}/{n}", [lp[n] for lp in v]) for n in sorted(v[0] if v else ())]
+        elif isinstance(v, dict):
+            out += [(f"{k}/{n}", [v[n]]) for n in sorted(v)]
         else:
-            out.append((k, [tree[k]]))
+            out.append((k, [v]))
     return out
-
-
-def tree_map(fn: Callable, tree: dict, *rest: dict) -> dict:
-    """``fn`` over the tensors of trees of one structure."""
-    return {k: ([{n: fn(lp[n], *(r[k][i][n] for r in rest)) for n in lp}
-                 for i, lp in enumerate(v)] if k == "layers"
-                else fn(v, *(r[k] for r in rest)))
-            for k, v in tree.items()}
 
 
 def from_stacked(like: dict, by_name: dict[str, list]) -> dict:
     """A tree shaped as ``like`` from ``stacked_leaves``-style groups."""
-    return {k: ([{n: by_name[f"layers/{n}"][i] for n in lp} for i, lp in enumerate(v)]
-                if k == "layers" else by_name[k][0])
-            for k, v in like.items()}
+    out = {}
+    for k, v in like.items():
+        if k in STACKS:
+            out[k] = [{n: by_name[f"{k}/{n}"][i] for n in lp} for i, lp in enumerate(v)]
+        elif isinstance(v, dict):
+            out[k] = {n: by_name[f"{k}/{n}"][0] for n in v}
+        else:
+            out[k] = by_name[k][0]
+    return out
 
 
 def init_opt_state(params: dict) -> dict:
@@ -92,8 +99,9 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     groups = zip(stacked_leaves(params), flat_g, stacked_leaves(state["m"]),
                  stacked_leaves(state["v"]))
     for (name, ps), (_, gs), (_, ms), (_, vs) in groups:
-        # decoupled decay on matrices only, by the stacked leaf's dims
-        decay = ps[0].dim() + name.startswith("layers/") >= 2
+        # decoupled decay on matrices only, by the stacked leaf's dims (a
+        # stack's leaf has one more than the port's per-layer tensor)
+        decay = ps[0].dim() + (name.split("/", 1)[0] in STACKS) >= 2
         new_p[name], new_m[name], new_v[name] = [], [], []
         for p, g, m, v in zip(ps, gs, ms, vs):
             gf = g.to(torch.float32) * scale

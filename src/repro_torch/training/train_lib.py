@@ -5,9 +5,12 @@ Model loss -> gradients summed over microbatches in float32 -> optional
 error-feedback int8 compression -> AdamW -> atomic async checkpoints in
 the JAX package's format -> deterministic skip-ahead resume
 (``batches.batch_at(step)``).  PyTorch runs eagerly: nothing is jitted.
-On the card the dense transformer's attention runs the forward and the
-backward flash kernels (``kernels/flash_attn``); the Mamba2 family trains
-on the CPU only, since the SSD-scan kernel has no backward yet.
+Every family's tree goes through the same loop (``optimizer.
+stacked_leaves`` walks every stack and Zamba2's ``shared_attn``).  On the
+card the attention of the dense and MoE transformers runs the forward and
+the backward flash kernels (``kernels/flash_attn``); the Mamba2 and Zamba2
+families train on the CPU only, since the SSD-scan kernel has no backward
+yet.
 
 A checkpoint holds {"p": params, "o": {"m", "v", "step"}} in the JAX
 layout (stacked (L, ...) leaves), so one written here restores in
@@ -23,11 +26,11 @@ import numpy as np
 import torch
 
 from ..models.convert import params_from_jax, params_to_jax, stack_layers, unstack_layers
-from ..models.model import ModelConfig
+from ..models.model import ModelConfig, tree_map
 from ..olap.columnar import resolve_device
 from .checkpoint import prune_old, restore_latest, save_checkpoint, wait_pending
 from .optimizer import (AdamWConfig, adamw_update, compress_grads, decompress_grads,
-                        from_stacked, init_opt_state, stacked_leaves, tree_map)
+                        from_stacked, init_opt_state, stacked_leaves)
 
 
 @dataclasses.dataclass

@@ -419,6 +419,52 @@ def test_flash_bwd_tiled_ref_matches_plain(b, h, hkv, s, dh, dtype):
         np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=rtol, atol=atol)
 
 
+# the training shapes the card times the backward at (chip_smoke.py's
+# bwd_times): canonicalizer-100m's 12/4 heads of 64, qwen3-moe's 64/4 of
+# 128 and zamba2-7b's 32/32 of 112, at S 192 (fewer rows than the card's)
+TRAIN_BWD_SHAPES = [(16, 12, 4, 192, 64), (2, 64, 4, 192, 128), (2, 32, 32, 192, 112)]
+
+
+def _bwd_case(b, h, hkv, s, dh, causal, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (T(rng.normal(size=(b, h, s, dh)).astype(np.float32)).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (T(rng.normal(size=(b, hkv, s, dh)).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    o = fref.mha_ref(q, k, v, causal=causal)
+    return (q, k, v, o, do), fref.mha_bwd_ref(q.float(), k.float(), v.float(), do.float(),
+                                              causal=causal)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,dh", TRAIN_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_tiled_ref_holds_the_training_shapes(b, h, hkv, s, dh, causal):
+    """The bf16 kernel's arithmetic (bf16 products, scale after the
+    product, the logsumexp in log2 units, P and dS split into bf16 hi +
+    lo) against ``mha_bwd_ref`` at the training shapes, causal and not, at
+    the card's ``BWD_TOL`` (rtol 1e-2, atol 2e-2)."""
+    args, want = _bwd_case(b, h, hkv, s, dh, causal, b * 10 + h + dh)
+    got = fref.flash_bwd_tiled_ref(*args, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=1e-2, atol=2e-2,
+                                   err_msg=name)
+
+
+def test_flash_bwd_tiled_ref_needs_the_split_of_p_and_ds():
+    """Why the kernel splits P and dS: with their bf16 hi alone, dK and dV
+    at qwen3-moe's causal shape (group 16, head dim 128) lie past
+    ``BWD_TOL``; with hi + lo every gradient holds it."""
+    args, want = _bwd_case(2, 64, 4, 192, 128, True, 206)
+
+    def excess(split):  # max of |got - want| - rtol |want| over dq, dk, dv
+        got = fref.flash_bwd_tiled_ref(*args, split=split)
+        return max(float(((g.float() - w).abs() - 1e-2 * w.abs()).max())
+                   for g, w in zip(got, want))
+
+    assert excess(split=False) > 2e-2 >= excess(split=True)
+
+
 def test_flash_attention_autograd_on_cpu_is_the_plain_backward():
     """CPU tensors differentiate ``mha_ref`` under autograd: their gradient
     is ``mha_bwd_ref``'s, and no kernel is counted."""
@@ -431,3 +477,22 @@ def test_flash_attention_autograd_on_cpu_is_the_plain_backward():
     assert launch_counts()["flash_attn"] == launch_counts()["flash_attn_bwd"] == 0
     for leaf, want in zip(leaves, fref.mha_bwd_ref(q, k, v, do)):
         np.testing.assert_allclose(leaf.grad.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_flash_ablation_parts_are_in_the_sources(direction):
+    """Every part of ``flash_attn/ablation.py`` finds the lines it takes out
+    (it fails on the card otherwise); the backward's variants keep only
+    ``BWD_HEAD_DIMS`` in the source's ``HEAD_DIMS``."""
+    from repro_torch.kernels import ablation as base
+    from repro_torch.kernels.flash_attn import ablation
+
+    if direction == "forward":
+        for part in ablation.PARTS:
+            cu, tile = ablation._sources(part)
+            assert "#include \"attn_tile.cuh\"" in cu and "namespace attn" in tile
+        return
+    for part in [None, *ablation.BWD_PARTS]:
+        text = base.variant_source(ablation._BWD_SRC, [*ablation._BWD_COMMON,
+                                                       *ablation.BWD_PARTS.get(part, [])])
+        assert "#define HEAD_DIMS(X) X(64) X(112) X(128)\n" in text

@@ -650,18 +650,22 @@ def test_mamba2_on_the_card_matches_the_cpu(cuda_device):
 
 # (rtol, atol) of the backward kernel against ``mha_bwd_ref`` on the inputs'
 # exact float32 values.  float32: only the order of f32 sums differs.
-# bfloat16: the kernel does the f32 arithmetic but takes D = rowsum(dO * O)
-# from the forward's bf16 output and rounds dq, dk, dv once (2**-9
-# relative); at the training shape the plain rehearsal of that arithmetic
-# (``flash_bwd_tiled_ref``) lies 0.0066 past rtol 1e-2 on gradients up to 10.
+# bfloat16: the products take bf16 operands (exact) with P and dS split into
+# bf16 hi + lo (~16 bits), D = rowsum(dO * O) comes from the forward's bf16
+# output, and dq, dk, dv are rounded once (2**-9 relative); at the training
+# shapes the plain rehearsal of that arithmetic (``flash_bwd_tiled_ref``)
+# lies up to 0.012 past rtol 1e-2 on gradients up to 20 (P and dS as bf16
+# hi alone: 0.025), and a lost tile would be off by whole units
 BWD_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-2, 2e-2)}
 
 # the training shape (canonicalizer-100m: batch 16, 12 heads over 4, S 192),
-# tile edges of both tilings (64 rows to head dim 128, 32 past it), GQA
-# groups 1, 3 and 8, and every head dim the kernels are built for
+# tile edges of the tilings (64 and 32 rows), GQA groups 1, 3, 8 and 16,
+# every head dim the kernels are built for, and qwen3-moe's (64/4 heads of
+# 128) and zamba2-7b's (32/32 of 112) attention at S 192
 BWD_CASES = [(16, 12, 4, 192, 64), (2, 4, 2, 77, 64), (1, 3, 1, 1, 64), (2, 8, 1, 65, 32),
              (2, 4, 4, 129, 128), (1, 8, 2, 100, 16), (1, 16, 2, 33, 112),
-             (1, 6, 2, 65, 192), (1, 8, 1, 97, 256), (1, 2, 2, 31, 256)]
+             (1, 6, 2, 65, 192), (1, 8, 1, 97, 256), (1, 2, 2, 31, 256),
+             (2, 64, 4, 192, 128), (2, 32, 32, 192, 112)]
 
 
 def _bwd_inputs(dev, b, h, hkv, s, dh, dtype, seed):

@@ -3,7 +3,8 @@
 same ``BatchIterator`` batches, at microbatches 1 and 2 and with int8
 gradient compression), AdamW and compression on stacked leaves, Mamba2's
 loss and gradients, checkpoints in both directions, resume after a
-restart, and the train and serve launchers.
+restart, and the train and serve launchers.  The MoE and Zamba2 trees:
+``tests/test_torch_training_families.py``.
 
 The JAX side runs on the ``xla`` kernel impl (the CPU default): ``jax.grad``
 cannot pass the Pallas flash kernel, so the JAX package trains by
@@ -17,6 +18,7 @@ is near AdamW's eps moves by up to lr either way on a last-bit difference;
 the largest seen is 1.8e-4); with compression, an element whose scaled
 gradient sits on a rounding boundary of the int8 grid can take the other
 step, so all elements within 1e-2 (lr) and 99.9% within 1e-4.
+
 """
 import dataclasses
 import hashlib
@@ -446,3 +448,4 @@ def test_served_model_builds_the_tokenizer_the_checkpoint_names(ssb_small, tmp_p
     got_cfg, params, got_tok, step = serve.served_model(base, ssb_small, device="cpu")
     assert (params, step) == (None, -1) and got_tok.vocab == own.vocab
     assert got_cfg.vocab == max(base.vocab, own.vocab_size)
+
