@@ -251,7 +251,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
              (parsed and exact, JSON-constrained and, as a diagnostic, not),
              and the 8 SSB NL questions of phase 3 through ``CacheService``
              (protocol kept, every table against the oracle, 0 false hits).
-14. profile — a fresh dataset and tenant replay the first 64 SSB requests
+14. dist   — the distribution (``repro_torch.distributed``) on a one-rank
+             NCCL process group, mesh ``build_mesh(plan_remesh(1, 1))``
+             (data 1, model 1): canonicalizer-100m trained ``DIST_STEPS``
+             steps at [train]'s batches with DTensor parameters and stacked
+             ZeRO-1 moments and without DTensor, losses, norms, parameters
+             and moments equal bit for bit, ``flash_attn`` and
+             ``flash_attn_bwd`` once per layer per step in both (through
+             ``local_map``); the same steps under ``ElasticController`` with
+             a device loss after step 2 and a restore from its checkpoint,
+             final parameters bit for bit; 8 NL prompts' prefill and 8
+             greedy decode steps on the mesh (``decode_attn``,
+             ``flash_attn``) and mamba2-780m's prefill at 4 layers
+             (``ssd_scan`` 4 times), each equal to its plain run bit for
+             bit; and ``python -m repro_torch.launch.dryrun`` on mamba2-780m
+             decode_32k and gemma-2b train_4k (a fake group of 256 on the
+             host's CPU, in processes of their own): ok, argument bytes
+             equal to the spec arithmetic.  Wall and device ms per train
+             step, DTensor against plain.
+15. profile — a fresh dataset and tenant replay the first 64 SSB requests
              under ``torch.profiler`` (device busy share of a cold start, the
              kernels and copies that took the most device time), and again
              under ``cProfile`` (host functions by own time); then one more
@@ -266,7 +284,7 @@ degraded count, any result with ``error`` set, or a status other than a
 hit, a miss or a bypass: the service turns a backend exception (a kernel
 that fails to launch) into such a result, not into an exception.
 
-The lines of phases 10-13 and ``[shapes]`` end with the card's name and
+The lines of phases 10-14 and ``[shapes]`` end with the card's name and
 power limit.  The last three lines of standard output are the ``kernels``
 JSON line, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  Exits
@@ -3050,6 +3068,321 @@ def train_phase(wl, oracle, seed: int, dev, gen, iters: int) -> dict:
                 "served": served}}
 
 
+# --------------------------------------------------------------- dist
+
+DIST_STEPS = 3  # train steps of canonicalizer-100m on the one-rank mesh
+DIST_FAIL_AFTER = 2  # the elastic run loses its "device" after this many steps
+DIST_DECODE = 8  # greedy decode steps after the sharded prefill
+DIST_SSD_DEPTH = 4  # mamba2-780m's layers in the sharded prefill
+DIST_PROFILE_STEPS = 2  # train steps traced per run for device ms per step
+DIST_DRYRUN = (("mamba2-780m", "decode_32k"), ("gemma-2b", "train_4k"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _same(a, b, what: str) -> None:
+    """Raise unless two tensors (or trees of them) are equal bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        for k in a:
+            _same(a[k], b[k], f"{what}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"[dist] {what}: the DTensor run differs from the plain one")
+    elif a != b:
+        raise AssertionError(f"[dist] {what}: {a} != {b}")
+
+
+def _dryrun_procs(out_dir: str) -> list:
+    """The dry-run launcher on two cells, each in a process of its own (the
+    fake process group cannot share one with this one's), started now."""
+    env = {**__import__("os").environ,
+           "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    procs = []
+    for arch, shape in DIST_DRYRUN:
+        out = str(Path(out_dir) / f"{arch}_{shape}.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--mesh", "single", "--out", out]
+        procs.append((arch, shape, out, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def dist_phase(seed: int, device_type: str = "cuda", backend: str = "nccl") -> dict:
+    """[dist]: the port's distribution on a one-rank NCCL process group, the
+    mesh ``build_mesh(plan_remesh(1, 1))`` (data 1, model 1) on the card.
+
+    * train: canonicalizer-100m at full size on [train]'s SSB batches (16 x
+      192), ``DIST_STEPS`` ``make_train_step`` steps with DTensor
+      parameters and stacked ZeRO-1 moments (``shard_train_state``), and
+      the same steps without DTensor: losses, norms, every parameter and
+      moment equal bit for bit (one rank runs the same aten ops on the same
+      local tensors), ``flash_attn`` and ``flash_attn_bwd`` launched once
+      per layer per step in both runs (through ``local_map`` on the mesh);
+    * elastic: the same steps under ``ElasticController``, a
+      ``DeviceLossError([])`` after step ``DIST_FAIL_AFTER`` and a restore
+      from that step's checkpoint: the final parameters equal the
+      uninterrupted run's bit for bit;
+    * serve: 8 SSB NL prompts, prefill and ``DIST_DECODE`` greedy decode
+      steps on the mesh (caches laid out by ``dryrun.cache_spec_fn``):
+      logits and tokens equal the plain run's bit for bit;
+    * ssd: mamba2-780m at full width, ``DIST_SSD_DEPTH`` layers: prefill on
+      the mesh equals the plain one, ``ssd_scan`` launched once per layer;
+    * dry-run: ``python -m repro_torch.launch.dryrun`` on ``DIST_DRYRUN``
+      (production single-pod mesh, a fake group of 256 in a process of its
+      own, on the host's CPU): status ok, ``argument_bytes`` equal to the
+      spec arithmetic.
+    Wall and device ms per train step, DTensor against plain."""
+    import contextlib
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get
+    from repro_torch.distributed.elastic import (DeviceLossError, ElasticController,
+                                                 build_mesh, plan_remesh)
+    from repro_torch.distributed.sharding import (batch_axes, distribute_tree, on_mesh,
+                                                  shard_batch, tree_param_specs)
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.model import STACKS, cut_depth
+    from repro_torch.training.checkpoint import save_checkpoint, wait_pending
+    from repro_torch.training.data import BatchIterator, build_pairs
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.tokenizer import build_tokenizer
+    from repro_torch.training.train_lib import (TrainConfig, checkpoint_tree,
+                                                gather_train_state, make_train_step,
+                                                restore_train_state, shard_train_state)
+    from repro_torch.workloads import ssb
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    procs = _dryrun_procs(tmp)  # on the host's CPU while the card trains
+    small = ssb.build(n_fact=2000, seed=seed)
+    tok = build_tokenizer([small])
+    batches = BatchIterator(build_pairs([small], paraphrases_per_intent=24), tok,
+                            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    cfg = get("canonicalizer-100m")
+    tcfg = TrainConfig()
+    dev = torch.device(device_type)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = build_mesh(plan_remesh(1, 1), device_type=device_type)
+        if tuple(mesh.shape) != (1, 1) or mesh.mesh_dim_names != ("data", "model"):
+            raise AssertionError(f"[dist] mesh {mesh}")
+
+        def shard(params):
+            return distribute_tree(params, tree_param_specs(params, 1, STACKS), mesh)
+
+        params0 = tt.init_params(cfg, seed, device=dev)
+
+        walls: list = []
+
+        def run(step_fn, p, o, first: int = 0, steps: int = DIST_STEPS, after=None):
+            out = []
+            for i in range(first, steps):
+                t0 = time.perf_counter()
+                loss, gnorm, p, o, _ = step_fn(p, o, batches.batch_at(i))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                out.append((loss, gnorm))
+                if after is not None:
+                    after(i, p, o)
+            return p, o, out
+
+        def whole(x):
+            return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+        plain_step = make_train_step(cfg, tcfg)
+        dist_step = make_train_step(cfg, tcfg, mesh=mesh)
+        times, launches = {}, {}
+        for name in ("plain", "dtensor"):
+            if name == "plain":
+                p, o, step_fn = params0, init_opt_state(params0), plain_step
+            else:
+                (p, o), step_fn = shard_train_state(cfg, params0, mesh), dist_step
+            reset_launch_counts()
+            walls.clear()
+            p, o, stats = run(step_fn, p, o)
+            launches[name] = dict(launch_counts())
+            result = {"params": p, "opt": o,
+                      "losses": [whole(l) for l, _ in stats],
+                      "gnorms": [whole(g) for _, g in stats]}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                q, r = p, o
+                for i in range(DIST_PROFILE_STEPS):
+                    q, r = step_fn(q, r, batches.batch_at(DIST_STEPS + i))[2:4]
+                torch.cuda.synchronize()
+            device = sum(ms for ms, _ in _device_ops(prof).values())
+            # the first step of a run pays one-time costs (DTensor's sharding
+            # propagation): the median of the steps, and each
+            times[name] = {"wall_ms_per_step": sorted(walls)[len(walls) // 2],
+                           "wall_ms_by_step": list(walls),
+                           "device_ms_per_step": device / DIST_PROFILE_STEPS}
+            del q, r
+            if name == "plain":
+                plain = result
+            else:
+                sharded = result
+        want = cfg.n_layers * DIST_STEPS
+        for name, c in launches.items():
+            if (c.get("flash_attn", 0), c.get("flash_attn_bwd", 0)) != (want, want):
+                raise AssertionError(f"[dist] {name}: {DIST_STEPS} steps launched {c}, not "
+                                     f"{want} flash_attn and flash_attn_bwd")
+        _same(sharded["losses"], plain["losses"], "losses")
+        _same(sharded["gnorms"], plain["gnorms"], "gradient norms")
+        dp, do = gather_train_state(sharded["params"], sharded["opt"])
+        _same(dp, plain["params"], "params")
+        _same(do["m"], plain["opt"]["m"], "moments m")
+        _same(do["v"], plain["opt"]["v"], "moments v")
+
+        # elastic: lose the "device" after DIST_FAIL_AFTER steps, restart
+        # from that step's checkpoint on a re-planned mesh
+        ck = os.path.join(tmp, "ckpt")
+
+        def save(i, p, o):
+            save_checkpoint(ck, i, checkpoint_tree(cfg, *gather_train_state(p, o)))
+
+        attempts = []
+
+        def run_fn(mesh_):
+            like = params0
+            got = restore_train_state(cfg, ck, like, init_opt_state(like)) \
+                if os.path.isdir(ck) else None
+            first = 0 if got is None else got[2] + 1
+            p, o = shard_train_state(cfg, like if got is None else got[0], mesh_,
+                                     opt_state=None if got is None else got[1])
+            attempts.append(first)
+            step_fn = make_train_step(cfg, tcfg, mesh=mesh_)
+            if ctl.restarts == 0:
+                p, o, _ = run(step_fn, p, o, 0, DIST_FAIL_AFTER, after=save)
+                wait_pending()
+                raise DeviceLossError([])
+            p, o, _ = run(step_fn, p, o, first, DIST_STEPS)
+            return {"params": p, "opt": o}
+
+        ctl = ElasticController(run_fn, model_parallel=1, device_type=device_type)
+        t0 = time.perf_counter()
+        out = ctl.run()
+        elastic_s = time.perf_counter() - t0
+        if ctl.restarts != 1 or attempts != [0, DIST_FAIL_AFTER]:
+            raise AssertionError(f"[dist] elastic: restarts {ctl.restarts}, resumed at "
+                                 f"{attempts}")
+        ep, _ = gather_train_state(out["params"], out["opt"])
+        _same(ep, plain["params"], "params after the elastic restart")
+
+        # serve: prefill + greedy decode of 8 SSB NL prompts on the mesh
+        texts = [q.text for q in small.queries() if q.kind == "nl"][:NL_BATCH]
+        enc = [tok.encode(f"question: {t}\nsignature: ", add_bos=True) for t in texts]
+        plen_ = max(len(e) for e in enc)
+        tokens = torch.full((len(enc), plen_), tok.pad, dtype=torch.int32)
+        for i, e in enumerate(enc):
+            tokens[i, plen_ - len(e):] = torch.tensor(e, dtype=torch.int32)
+        tokens = tokens.to(dev)
+        sp = plain["params"]
+        baxes = batch_axes(mesh.mesh_dim_names)
+        hints = {"cache": dryrun.cache_spec_fn(cfg, baxes[0], mesh, False)}
+
+        def serve(params, sharded: bool):
+            outs = []
+            on = on_mesh(mesh, hints) if sharded else contextlib.nullcontext()
+            with torch.no_grad(), on:
+                toks = shard_batch({"t": tokens}, mesh)["t"] if sharded else tokens
+                logits, caches, pos = tt.prefill(cfg, params, tokens=toks,
+                                                 cache_len=plen_ + DIST_DECODE)
+                for _ in range(DIST_DECODE):
+                    nxt = logits.argmax(-1).to(torch.int32)
+                    outs.append((whole(logits), whole(nxt)))
+                    logits, caches, pos = tt.decode_step(cfg, params, nxt, caches, pos)
+            torch.cuda.synchronize()
+            return outs
+
+        reset_launch_counts()
+        want_serve = serve(sp, False)
+        serve_plain = dict(launch_counts())
+        dparams = shard(sp)
+        reset_launch_counts()
+        got_serve = serve(dparams, True)
+        serve_launches = dict(launch_counts())
+        _same(got_serve, want_serve, "prefill and decode")
+        if (serve_launches.get("flash_attn"), serve_launches.get("decode_attn")) != \
+                (cfg.n_layers, cfg.n_layers * DIST_DECODE):
+            raise AssertionError(f"[dist] serve launched {serve_launches}")
+        del dparams
+
+        # ssd: mamba2-780m prefill at full width, cut depth
+        mcfg, mparams = cut_depth(get("mamba2-780m"),
+                                  mamba2.init_params(get("mamba2-780m"), seed, device=dev),
+                                  DIST_SSD_DEPTH)
+        mtokens = (tokens % mcfg.vocab).to(torch.int32)
+        with torch.no_grad():
+            reset_launch_counts()
+            want_m = mamba2.prefill(mcfg, mparams, tokens=mtokens)
+            torch.cuda.synchronize()
+            ssd_plain = dict(launch_counts())
+            dm = shard(mparams)
+            reset_launch_counts()
+            with on_mesh(mesh, {"cache": dryrun.cache_spec_fn(mcfg, baxes[0], mesh, False)}):
+                got_m = mamba2.prefill(mcfg, dm, tokens=shard_batch({"t": mtokens}, mesh)["t"])
+            torch.cuda.synchronize()
+            ssd_launches = dict(launch_counts())
+        got_m = (whole(got_m[0]), {k: whole(v) for k, v in got_m[1].items()}, whole(got_m[2]))
+        _same(got_m, want_m, "mamba2 prefill")
+        if ssd_launches.get("ssd_scan") != DIST_SSD_DEPTH:
+            raise AssertionError(f"[dist] mamba2 prefill launched {ssd_launches}")
+        del mparams, dm
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    dry = {}
+    for arch, shape, out, proc in procs:
+        log = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"[dist] dry-run {arch} {shape} exited "
+                                 f"{proc.returncode}: {log[-2000:]}")
+        rec = json.load(open(out))[f"{arch}|{shape}|single"]
+        want_b = dryrun.argument_bytes(get(arch), shape, dryrun.MESH_SHAPES["single"])
+        if rec["status"] != "ok" or rec["memory"]["argument_bytes"] != want_b:
+            raise AssertionError(f"[dist] dry-run {arch} {shape}: {rec.get('status')}, "
+                                 f"argument bytes {rec.get('memory')} vs {want_b}")
+        dry[f"{arch}|{shape}"] = {"argument_bytes": want_b,
+                                  "peak_bytes": rec["memory"]["peak_bytes"],
+                                  "collectives": rec["collectives"]["count_by_kind"],
+                                  "trace_s": rec["trace_s"], "setup_s": rec["setup_s"]}
+    return {"launches": {"train_plain": launches["plain"], "train": launches["dtensor"],
+                         "serve_plain": serve_plain, "serve": serve_launches,
+                         "ssd_plain": ssd_plain, "ssd": ssd_launches},
+            "summary": {
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "train_steps": DIST_STEPS,
+                "losses": [float(x) for x in plain["losses"]],
+                "train_bit_identical": True, "times": times,
+                "elastic": {"restarts": ctl.restarts, "resumed_at": attempts,
+                            "wall_s": elastic_s, "bit_identical": True},
+                "serve": {"prompts": len(texts), "prompt_len": plen_,
+                          "decode_steps": DIST_DECODE, "bit_identical": True},
+                "ssd": {"depth": DIST_SSD_DEPTH, "bit_identical": True},
+                "dryrun": dry, "dryrun_wait_s": time.perf_counter() - t0,
+                "phase_s": time.perf_counter() - t_phase}}
+
+
 # --------------------------------------------------------------- profile
 
 
@@ -3375,6 +3708,10 @@ def main(argv=None) -> int:
     print(f"[train] {json.dumps(trained['summary'])} launches "
           f"{json.dumps(trained['launches'])} in {time.perf_counter() - t0:.1f} s; "
           f"card: {card}")
+    t0 = time.perf_counter()
+    distd = dist_phase(args.seed)
+    print(f"[dist] {json.dumps(distd['summary'])} launches {json.dumps(distd['launches'])} "
+          f"in {time.perf_counter() - t0:.1f} s; card: {card}")
     for what, run in (("", lambda: profile_sample(args.n_fact, args.seed)),
                       ("engine ", lambda: profile_engine(llm["engine"], wl)),
                       ("mamba2 engine ", lambda: profile_engine(ssm["engine"], wl))):
@@ -3384,6 +3721,11 @@ def main(argv=None) -> int:
 
     # each path's counts were zeroed just before it and read just after
     for path, counts, names in (("train", trained["launches"], ("flash_attn", "flash_attn_bwd")),
+                                ("dist train", distd["launches"]["train"],
+                                 ("flash_attn", "flash_attn_bwd")),
+                                ("dist serve", distd["launches"]["serve"],
+                                 ("flash_attn", "decode_attn")),
+                                ("dist ssd", distd["launches"]["ssd"], ("ssd_scan",)),
                                 ("reduced", small["launches"], ("flash_attn", "decode_attn")),
                                 ("gemma-2b", gemma["launches"], ("flash_attn", "decode_attn")),
                                 ("zamba2-7b", zam["launches"],

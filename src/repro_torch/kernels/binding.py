@@ -5,6 +5,8 @@ registry of kernel launches."""
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import ctypes
 
 import torch
@@ -52,15 +54,33 @@ def reset_launch_counts() -> None:
         _LAUNCHES.clear()
 
 
+# set while a caller runs the plain versions only (the dry-run's FakeTensors)
+_PLAIN_ONLY: contextvars.ContextVar = contextvars.ContextVar("plain_only", default=None)
+
+
+@contextlib.contextmanager
+def plain_only(why: str):
+    """Within the block a wrapper handed a CUDA tensor raises instead of
+    launching its kernel (``why`` says who asked)."""
+    token = _PLAIN_ONLY.set(why)
+    try:
+        yield
+    finally:
+        _PLAIN_ONLY.reset(token)
+
+
 def on_cuda(what: str, *tensors) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises on mixed or
-    other devices."""
+    other devices, and on CUDA tensors inside ``plain_only``."""
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"{what}: tensors on {dev} and {t.device}")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{what}: unsupported device {dev}")
+    if dev.type == "cuda" and _PLAIN_ONLY.get() is not None:
+        raise RuntimeError(f"{what}: a CUDA tensor inside {_PLAIN_ONLY.get()}, which "
+                           f"runs the plain versions on CPU tensors only")
     return dev.type == "cuda"
 
 

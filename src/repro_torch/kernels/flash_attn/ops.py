@@ -7,11 +7,17 @@ On CUDA, where grad is enabled and an input requires it, the call goes
 through :class:`FlashAttention`, whose forward launches the forward kernel
 and whose backward launches the backward kernel; otherwise (the serving
 engine runs under ``torch.inference_mode``) it launches the forward
-kernel alone.  CPU tensors take ``mha_ref`` under autograd."""
+kernel alone.  CPU tensors take ``mha_ref`` under autograd.
+
+DTensors (a sharded model) go through ``distributed.local.call``: each rank
+attends with its own shard, heads split on ``model`` and batch on the data
+axes, and a rank whose query heads read only some KV heads gets those
+(``local.gqa_slice``)."""
 from __future__ import annotations
 
 import torch
 
+from ...distributed import local
 from ..binding import on_cuda
 from . import kernel, ref
 
@@ -38,6 +44,14 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True, scale: float | None = None):
     """q: (B, H, S, Dh); k, v: (B, Hkv, S, Dh) -> (B, H, S, Dh)."""
+    if local.any_dtensor(q, k, v):
+        n_heads, n_kv = q.shape[1], k.shape[1]
+
+        def shard(start, ql, kl, vl):
+            kl, vl = local.gqa_slice(kl, vl, start, ql.shape[1], n_heads, n_kv)
+            return flash_attention(ql, kl, vl, causal, scale)
+
+        return local.call(shard, [local.Arg(t, 0, 1) for t in (q, k, v)], [(0, 1)])
     if on_cuda("flash_attention", q, k, v):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

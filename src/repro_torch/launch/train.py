@@ -10,16 +10,20 @@ from the newest).  Each checkpoint's ``extra`` records the arch, whether
 it is the reduced config, and the workloads the tokenizer was built over,
 so ``launch.serve --ckpt-dir`` rebuilds the same token ids.
 
-Departures from the reference: ``--reduced`` widens the reduced config's
+``--dryrun-mesh {single,multi}`` traces the distributed train step of
+``--arch`` at ``train_4k`` on the production mesh instead
+(``launch.dryrun.run_cell``, a fake process group on the CPU) and prints
+its record.
+
+Departure from the reference: ``--reduced`` widens the reduced config's
 head to the tokenizer's vocabulary, as ``launch.serve`` does (the
-reference stops with ``SystemExit``); ``--dryrun-mesh`` raises
-``NotImplementedError`` until the port has its distribution (ROADMAP.md
-Queue 1).
+reference stops with ``SystemExit``).
 
 Usage:
     python -m repro_torch.launch.train --arch canonicalizer-100m --steps 300 \\
         --batch 16 --ckpt-dir ckpts/canon
     python -m repro_torch.launch.train --reduced --steps 2 --device cpu --ckpt-dir /tmp/ck
+    python -m repro_torch.launch.train --arch qwen3-32b --dryrun-mesh single
 """
 from __future__ import annotations
 
@@ -45,9 +49,11 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     if args.dryrun_mesh:
-        raise NotImplementedError(
-            "--dryrun-mesh: the port has no device mesh yet (ROADMAP.md Queue 1, "
-            "distribution: mesh, ZeRO-1 specs, elastic re-mesh and --dryrun-mesh)")
+        from .dryrun import run_cell
+
+        res = run_cell(args.arch, "train_4k", args.dryrun_mesh)
+        print(res)
+        return res
 
     from ..configs.registry import get, reduced
     from ..training.data import BatchIterator, build_pairs

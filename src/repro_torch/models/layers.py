@@ -6,12 +6,19 @@ package's ``repro/models/layers.py``.  Projection matrices keep JAX's
 through their dispatchers: ``flash_attention`` in prefill and
 ``decode_attention`` in each decode step (CUDA tensors launch the
 hand-written kernels, CPU tensors take the plain versions).
+
+The activation hints of the JAX package (``distributed.sharding.hint``)
+stand where JAX's do; with no hint context they return their input.  On
+DTensors (a model sharded on a ``DeviceMesh``) a projection whose output
+is split into heads is first laid out whole per head (``_heads``), and the
+decode step writes each rank's cache shard in place (``_write_slot``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import hint, is_dtensor
 from ..kernels.decode_attn.ops import decode_attention
 from ..kernels.flash_attn.ops import flash_attention
 
@@ -72,14 +79,57 @@ def attn_param_shapes(d_model: int, n_heads: int, kv_heads: int, head_dim: int,
     return shapes
 
 
+def _heads(t, n: int, shape: tuple):
+    """``t.reshape(shape)``, where ``shape`` splits ``t``'s last dimension
+    into ``n`` heads.  A DTensor split on that dimension by a mesh
+    dimension whose size does not divide ``n`` is first gathered whole on
+    it: a shard would hold part of a head."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pls = [Replicate() if isinstance(pl, Shard) and pl.dim % t.dim() == t.dim() - 1
+               and n % t.device_mesh.size(d) else pl
+               for d, pl in enumerate(t.placements)]
+        if pls != list(t.placements):
+            t = t.redistribute(t.device_mesh, pls)
+    return t.reshape(shape)
+
+
 def _write_slot(cache, new, idx):
     """cache (B, Hkv, Smax, Dh)[b, :, idx[b]] = new[b], in place.  A slot at
-    or past Smax is not written: the JAX package's scatter drops it."""
+    or past Smax is not written: the JAX package's scatter drops it.  A
+    DTensor cache is written shard by shard: ``new`` and ``idx`` are laid
+    out as the cache's batch and heads, and a shard of cache slots takes
+    the rows whose slot falls in it."""
+    if is_dtensor(cache):
+        return _write_slot_sharded(cache, new, idx)
+    _write_slot_local(cache, new, idx, 0)
+
+
+def _write_slot_local(cache, new, idx, offset: int):
     smax = cache.shape[2]
     rows = torch.arange(cache.shape[0], device=cache.device)
-    slot = idx.clamp(max=smax - 1).long()
-    keep = (idx < smax)[:, None, None]
+    slot = (idx - offset).clamp(min=0, max=smax - 1).long()
+    keep = ((idx >= offset) & (idx < offset + smax))[:, None, None]
     cache[rows, :, slot] = torch.where(keep, new.to(cache.dtype), cache[rows, :, slot])
+
+
+def _write_slot_sharded(cache, new, idx):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ..distributed.sharding import global_offset
+
+    mesh, pls = cache.device_mesh, cache.placements
+
+    def local(t, keep_dims):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        want = [pl if isinstance(pl, Shard) and pl.dim in keep_dims else Replicate()
+                for pl in pls]
+        return t.redistribute(mesh, want).to_local()
+
+    offset = global_offset(tuple(cache.shape), pls, mesh)
+    _write_slot_local(cache.to_local(), local(new, (0, 1)), local(idx, (0,)), offset[2])
 
 
 def attention(p, x, *, n_heads, kv_heads, head_dim, qk_norm=False,
@@ -95,9 +145,9 @@ def attention(p, x, *, n_heads, kv_heads, head_dim, qk_norm=False,
     written in place at ``cache_pos``.
     """
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, s, kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, kv_heads, head_dim)
+    q = _heads(x @ p["wq"], n_heads, (b, s, n_heads, head_dim))
+    k = _heads(x @ p["wk"], kv_heads, (b, s, kv_heads, head_dim))
+    v = _heads(x @ p["wv"], kv_heads, (b, s, kv_heads, head_dim))
     if qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -109,7 +159,8 @@ def attention(p, x, *, n_heads, kv_heads, head_dim, qk_norm=False,
     k = apply_rope(k, cos, sin, rope_fraction)
 
     if kv_cache is None:
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, Dh)
+        qh = hint(q.transpose(1, 2), "attn_heads")  # (B, H, S, Dh)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
         out = flash_attention(qh, kh, vh, causal=True)
         out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
         return out @ p["wo"], (kh, vh)
@@ -144,4 +195,5 @@ def mlp(p, x, activation: str):
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {activation!r}")
+    h = hint(h, "mlp_hidden")
     return h @ p["w2"]

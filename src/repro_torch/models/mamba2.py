@@ -26,8 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd_scan.ops import ssd_scan
-from ..kernels.ssd_scan.ref import ssd_decode_step
+from ..distributed.sharding import cache_zeros, hint
+from ..kernels.ssd_scan.ops import ssd_scan, ssd_step
 from .layers import rmsnorm
 from .model import ModelConfig, init_by_rule
 from .transformer import _inputs, batch_loss, embed_tokens, logits_fn
@@ -116,12 +116,12 @@ def _block(cfg: ModelConfig, lp: dict, x, state=None, conv_buf=None,
         window = torch.cat([conv_buf, x_raw], dim=1)  # (B, K, di)
         xr = F.silu((window.float() * lp["conv"].float()[None]).sum(dim=1, keepdim=True))
         xr = xr.to(x.dtype).reshape(b, h, p)
-        y, new_state = ssd_decode_step(state, xr, dt[:, 0], a, bm[:, 0], cm[:, 0])
+        y, new_state = ssd_step(state, xr, dt[:, 0], a, bm[:, 0], cm[:, 0])
         skip = lp["d_skip"][None, :, None]
         tail = window[:, 1:]
     y = y.float() + xr.float() * skip.to(xr.dtype).float()
     y = (y.reshape(b, s, -1) * F.silu(z.float())).to(x.dtype)
-    return x + y @ lp["out_proj"], new_state, tail
+    return hint(x + y @ lp["out_proj"], "residual"), new_state, tail
 
 
 def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None):
@@ -148,10 +148,11 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
     (L, B, K-1, d_inner) in ``cfg.dtype``.  ``cache_len`` is moot (the
     state is O(1) in sequence length); kept for interface parity."""
     return {
-        "state": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                              cfg.ssm_state), dtype=torch.float32, device=device),
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1, cfg.d_inner),
-                            dtype=cfg.dtype, device=device),
+        "state": cache_zeros("state", (cfg.n_layers, batch, cfg.ssm_heads,
+                                       cfg.ssm_head_dim, cfg.ssm_state),
+                             torch.float32, device),
+        "conv": cache_zeros("conv", (cfg.n_layers, batch, cfg.conv_kernel - 1,
+                                     cfg.d_inner), cfg.dtype, device),
     }
 
 

@@ -127,6 +127,21 @@ def cut_depth(cfg: ModelConfig, params: dict, depth: int):
     return dataclasses.replace(cfg, **kw), out
 
 
+def shapes_to_struct(shapes: dict, dtype, float32_leaves: frozenset = frozenset()):
+    """A shape tree as uninitialised tensors (FakeTensors under the active
+    ``FakeTensorMode``: the dry-run's stand-ins), each in ``dtype`` but the
+    leaves named in ``float32_leaves`` (the family's ``FLOAT32_LEAVES``),
+    which stay float32 as ``init_by_rule`` keeps them."""
+    def make(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: make(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [make(v, name) for v in tree]
+        return torch.empty(tree, dtype=torch.float32 if name in float32_leaves else dtype)
+
+    return make(shapes)
+
+
 def init_by_rule(cfg: ModelConfig, shapes: dict, generator: "torch.Generator | int" = 0,
                  device="cuda") -> dict:
     """Random parameters of a family's ``shapes`` with the JAX package's

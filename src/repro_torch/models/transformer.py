@@ -31,7 +31,9 @@ forward take precomputed frame/patch ``embeddings``; decode takes token ids.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from ..distributed.sharding import cache_zeros, hint, settle
 from .layers import attention, attn_param_shapes, mlp, mlp_param_shapes, rmsnorm
 from .model import STACKS, ModelConfig, init_by_rule, tree_map
 from .moe import expert_shards, moe_ffn, moe_param_shapes
@@ -93,18 +95,18 @@ def _block(cfg: ModelConfig, lp: dict, x, kv_cache=None, cache_pos=None):
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         rope_fraction=cfg.rope_fraction, kv_cache=kv_cache, cache_pos=cache_pos,
     )
-    x = x + h
+    x = hint(x + h, "residual")
     hin = rmsnorm(x, lp["ln2"])
     if "moe_w1" in lp:
         h = moe_ffn(lp, hin, cfg)
     else:
         h = mlp({k[4:]: v for k, v in lp.items() if k.startswith("mlp_")},
                 hin, cfg.activation)
-    return x + h, kv
+    return hint(x + h, "residual"), kv
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens):
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = settle(F.embedding(tokens.long(), params["embed"])).to(cfg.dtype)
     if cfg.kind in ("dense", "moe") and cfg.name.startswith("gemma"):
         x = x * (cfg.d_model ** 0.5)
     return x
@@ -124,7 +126,7 @@ def _inputs(cfg, params, tokens, embeddings):
 
 def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None):
     """Scoring forward -> logits (B, S, V) in f32."""
-    x = _inputs(cfg, params, tokens, embeddings)
+    x = hint(_inputs(cfg, params, tokens, embeddings), "residual")
     for stack in _stacks(params):
         for lp in params[stack]:
             x, _ = _block(cfg, lp, x)
@@ -171,8 +173,8 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
     for stack, n in (("dense_layers", n_dense), ("layers", cfg.n_layers - n_dense)):
         if n:
             shape = (n, batch, cfg.kv_heads, cache_len, cfg.hd)
-            out[stack] = (torch.zeros(shape, dtype=cfg.dtype, device=device),
-                          torch.zeros(shape, dtype=cfg.dtype, device=device))
+            out[stack] = (cache_zeros(stack, shape, cfg.dtype, device),
+                          cache_zeros(stack, shape, cfg.dtype, device))
     return out
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import cache_zeros, hint
 from . import mamba2
 from .layers import attention, attn_param_shapes, mlp, mlp_param_shapes, rmsnorm
 from .model import ModelConfig, init_by_rule
@@ -77,17 +78,20 @@ def _segments(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
 
 def _shared_block(cfg: ModelConfig, sp: dict, x, kv_cache=None, cache_pos=None):
     """Attention (RoPE over the whole head, as JAX's call passes no
-    fraction) and the MLP, each with its residual."""
+    fraction) and the MLP, each with its residual.  The residuals take the
+    "residual" hint, which JAX's block leaves to GSPMD: on DTensors the
+    reduction of the block's pending sums would otherwise split the
+    sequence, which the next Mamba layer's projections cannot take."""
     h, kv = attention(
         sp, rmsnorm(x, sp["ln1"]),
         n_heads=cfg.n_heads, kv_heads=cfg.kv_heads, head_dim=cfg.hd,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         kv_cache=kv_cache, cache_pos=cache_pos,
     )
-    x = x + h
+    x = hint(x + h, "residual")
     h = mlp({k[4:]: v for k, v in sp.items() if k.startswith("mlp_")},
             rmsnorm(x, sp["ln2"]), cfg.activation)
-    return x + h, kv
+    return hint(x + h, "residual"), kv
 
 
 def forward(cfg: ModelConfig, params: dict, tokens=None, embeddings=None):
@@ -118,8 +122,8 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, device) -> dict:
     cache_len, Dh), in ``cfg.dtype`` but the state, on ``device``."""
     out = mamba2.make_cache(cfg, batch, cache_len, device)
     shape = (attn_apps(cfg), batch, cfg.kv_heads, cache_len, cfg.hd)
-    out["attn_k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
-    out["attn_v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    out["attn_k"] = cache_zeros("attn_k", shape, cfg.dtype, device)
+    out["attn_v"] = cache_zeros("attn_v", shape, cfg.dtype, device)
     return out
 
 

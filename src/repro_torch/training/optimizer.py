@@ -24,9 +24,19 @@ each stack of ``STACKS`` (``dense_layers``, ``layers``, ``mamba``) a list
 of per-layer dicts, any other dict (``shared_attn``) a dict of tensors,
 every other value a tensor.  ``stacked_leaves`` lists its leaves in JAX's
 flattening order: top-level keys sorted, names sorted inside each key.
-The optimizer state is {"m": tree, "v": tree, "step": int}.  The ZeRO-1
-specs of the reference (``zero1_spec``, ``opt_state_specs``) wait for the
-port's distribution (ROADMAP.md Queue 1).
+The optimizer state is {"m": tree, "v": tree, "step": int}.
+
+ZeRO-1 (``zero1_spec``, ``opt_state_specs``: the reference's rule) shards
+the moments over the data axes on their first unsharded dimension that
+divides, which for a stack is often the layer axis.  No placement of a
+per-layer tensor can say "layer l lives on data rank l // 4", so the
+distributed path keeps the moments stacked: ``init_stacked_opt_state``
+gives {"m": {name: (L, ...) tensor}, "v": ..., "step"} with the names and
+order of ``stacked_leaves``, as DTensors laid out by ``opt_state_specs``.
+``adamw_update`` takes either form; on the stacked one it stacks each
+leaf's gradients and parameters, runs the same elementwise update in the
+moments' layout, and hands the parameters back per layer, in their own
+layout.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import dataclasses
 
 import torch
 
+from ..distributed.sharding import P, to_placements, tree_map_specs
 from ..models.model import STACKS, tree_map
 
 
@@ -83,10 +94,66 @@ def init_opt_state(params: dict) -> dict:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": 0}
 
 
+def in_stack(name: str) -> bool:
+    """Whether the ``stacked_leaves`` leaf ``name`` is a leaf of a stack."""
+    return name.split("/", 1)[0] in STACKS
+
+
+def stack(name: str, ts: list):
+    """A ``stacked_leaves`` group as the reference's leaf: a stack's layers
+    stacked to (L, ...), any other leaf itself."""
+    return torch.stack(ts) if in_stack(name) else ts[0]
+
+
+def init_stacked_opt_state(params: dict, specs: dict | None = None, mesh=None) -> dict:
+    """Zero moments in the stacked form: one float32 (L, ...) tensor per
+    leaf of a stack, one tensor per other leaf, keyed by ``stacked_leaves``
+    names; DTensors laid out by ``specs`` (``opt_state_specs(...)["m"]``)
+    on ``mesh`` when both are given, built shard by shard."""
+    out = {}
+    for name, ps in stacked_leaves(params):
+        shape = _stacked_shape(name, ps)
+        if mesh is None:
+            out[name] = torch.zeros(shape, dtype=torch.float32, device=ps[0].device)
+        else:
+            from torch.distributed.tensor import zeros
+
+            out[name] = zeros(shape, dtype=torch.float32, device_mesh=mesh,
+                              placements=to_placements(specs[name], mesh))
+    return {"m": out, "v": {k: torch.zeros_like(t) for k, t in out.items()}, "step": 0}
+
+
+def _stacked_shape(name: str, ps: list) -> tuple:
+    return (len(ps), *ps[0].shape) if in_stack(name) else tuple(ps[0].shape)
+
+
+def is_stacked_state(state: dict) -> bool:
+    """True for the moments of ``init_stacked_opt_state``."""
+    return all(isinstance(t, torch.Tensor) for t in state["m"].values())
+
+
+def _layout(x, like):
+    """``x`` in ``like``'s DTensor layout (``x`` itself where either is a
+    plain tensor or the layouts agree)."""
+    from torch.distributed.tensor import DTensor
+
+    if not (isinstance(x, DTensor) and isinstance(like, DTensor)) \
+            or tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
+def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
+                 moment_specs=None):
     """One AdamW step -> (new params, new state, global grad norm (a f32
-    tensor, before the clip))."""
+    tensor, before the clip)).  ``state`` is the per-layer tree of
+    ``init_opt_state`` or the stacked form of ``init_stacked_opt_state``.
+    On the stacked form the update runs in the moments' layout; with
+    ``moment_specs`` (any true value: the stacked moments carry their own
+    layout) the new parameters are also cast to their dtype there, so the
+    gather back to the parameters' layout moves their dtype, not float32,
+    as the reference's ``moment_specs`` constraint does."""
     step = state["step"] + 1
     lr = cfg.lr * min(step / max(cfg.warmup_steps, 1), 1.0)  # linear warmup
     flat_g = stacked_leaves(grads)
@@ -95,28 +162,87 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1t = 1.0 - cfg.b1 ** step
     b2t = 1.0 - cfg.b2 ** step
+
+    def upd(p, g, m, v, decay):
+        gf = g.to(torch.float32) * scale
+        m = cfg.b1 * m + (1 - cfg.b1) * gf
+        v = cfg.b2 * v + (1 - cfg.b2) * gf * gf
+        delta = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
+        if decay:
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        return p.to(torch.float32) - lr * delta, m, v
+
+    if is_stacked_state(state):
+        new_p, new_m, new_v = {}, {}, {}
+        for (name, ps), (_, gs) in zip(stacked_leaves(params), flat_g):
+            m, v = state["m"][name], state["v"][name]
+            decay = len(_stacked_shape(name, ps)) >= 2
+            p_all = stack(name, ps)
+            pf, new_m[name], new_v[name] = upd(_layout(p_all, m), _layout(stack(name, gs), m),
+                                               m, v, decay)
+            if moment_specs:
+                pf = pf.to(ps[0].dtype)
+            pf = _layout(pf, p_all).to(ps[0].dtype)
+            new_p[name] = [pf[i] for i in range(len(ps))] if in_stack(name) else [pf]
+        return (from_stacked(params, new_p),
+                {"m": new_m, "v": new_v, "step": step}, gnorm)
+
     new_p, new_m, new_v = {}, {}, {}
     groups = zip(stacked_leaves(params), flat_g, stacked_leaves(state["m"]),
                  stacked_leaves(state["v"]))
     for (name, ps), (_, gs), (_, ms), (_, vs) in groups:
         # decoupled decay on matrices only, by the stacked leaf's dims (a
         # stack's leaf has one more than the port's per-layer tensor)
-        decay = ps[0].dim() + (name.split("/", 1)[0] in STACKS) >= 2
+        decay = ps[0].dim() + in_stack(name) >= 2
         new_p[name], new_m[name], new_v[name] = [], [], []
         for p, g, m, v in zip(ps, gs, ms, vs):
-            gf = g.to(torch.float32) * scale
-            m = cfg.b1 * m + (1 - cfg.b1) * gf
-            v = cfg.b2 * v + (1 - cfg.b2) * gf * gf
-            delta = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
-            if decay:
-                delta = delta + cfg.weight_decay * p.to(torch.float32)
-            new_p[name].append((p.to(torch.float32) - lr * delta).to(p.dtype))
+            pf, m, v = upd(p, g, m, v, decay)
+            new_p[name].append(pf.to(p.dtype))
             new_m[name].append(m)
             new_v[name].append(v)
     return (from_stacked(params, new_p),
             {"m": from_stacked(params, new_m), "v": from_stacked(params, new_v),
              "step": step},
             gnorm)
+
+
+# ------------------------------------------------------------------- ZeRO-1
+
+
+def zero1_spec(spec: P, shape: tuple, data_axes: tuple, data_size: int) -> P:
+    """Extend a param's TP spec so optimizer moments also shard over the data
+    axes: pick the first dimension that is unsharded and divisible."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (ax, dim) in enumerate(zip(parts, shape)):
+        if ax is None and dim % data_size == 0 and dim >= data_size:
+            parts[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+            return P(*parts)
+    return P(*parts)  # nothing divisible: stay TP-only
+
+
+def stacked_specs(param_specs: dict, param_shapes: dict) -> dict:
+    """{name: (stacked shape, stacked spec)} per ``stacked_leaves`` name: a
+    stack's leaf takes the (L, ...) shape and its spec a leading ``None``,
+    the reference's stacked leaf."""
+    shapes = tree_map_specs(lambda t, s: (tuple(t.shape) if hasattr(t, "shape")
+                                          else tuple(t), s), param_shapes, param_specs)
+    out = {}
+    for name, pairs in stacked_leaves(shapes):
+        (shape, spec), n = pairs[0], len(pairs)
+        out[name] = (((n, *shape), P(None, *spec)) if in_stack(name)
+                     else (shape, spec))
+    return out
+
+
+def opt_state_specs(param_specs: dict, param_shapes: dict, data_axes: tuple,
+                    data_size: int, zero1: bool = True) -> dict:
+    """ZeRO-1 specs of the stacked moments: {"m": {name: P}, "v": ...,
+    "step": P()}, ``zero1_spec`` of each stacked leaf (shapes may be shape
+    tuples or tensors); without ``zero1`` each moment takes its
+    parameter's stacked spec."""
+    moment = {name: zero1_spec(spec, shape, data_axes, data_size) if zero1 else spec
+              for name, (shape, spec) in stacked_specs(param_specs, param_shapes).items()}
+    return {"m": moment, "v": dict(moment), "step": P()}
 
 
 # --------------------------------------- error-feedback int8 compression

@@ -25,12 +25,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import (batch_axes, batch_size_of, distribute_tree, on_mesh,
+                                    shard_batch, to_placements, tree_param_specs)
 from ..models.convert import params_from_jax, params_to_jax, stack_layers, unstack_layers
-from ..models.model import ModelConfig, tree_map
+from ..models.model import STACKS, ModelConfig, tree_map
 from ..olap.columnar import resolve_device
 from .checkpoint import prune_old, restore_latest, save_checkpoint, wait_pending
 from .optimizer import (AdamWConfig, adamw_update, compress_grads, decompress_grads,
-                        from_stacked, init_opt_state, stacked_leaves)
+                        from_stacked, in_stack, init_opt_state, init_stacked_opt_state,
+                        is_stacked_state, opt_state_specs, stack, stacked_leaves)
 
 
 @dataclasses.dataclass
@@ -50,14 +53,16 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict, microbatches: in
     microbatches, the batch rows are cut into ``microbatches`` equal
     slices, each slice's gradients added into float32 zeros, and loss and
     gradients divided by their count (as the reference's ``fori_loop``);
-    without, the gradients keep the parameters' dtypes."""
+    without, the gradients keep the parameters' dtypes.  A leaf the loss
+    does not read (``embed`` of an ``embed_inputs`` config) gets zeros, as
+    from ``jax.value_and_grad``."""
     mod = cfg.build()
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     flat = [t for _, ts in stacked_leaves(leaves) for t in ts]
 
     def grads_of(mb):
         loss = mod.loss_fn(cfg, leaves, mb)
-        return loss, torch.autograd.grad(loss, flat)
+        return loss, torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
 
     if microbatches <= 1:
         loss, gs = grads_of(batch)
@@ -80,9 +85,11 @@ def _like(tree: dict, flat: list) -> dict:
                                for name, ts in stacked_leaves(tree)})
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
     """``train_step(params, opt_state, batch, compress_residual=None)`` ->
-    (loss, gnorm, new params, new opt state, new residual)."""
+    (loss, gnorm, new params, new opt state, new residual).  With ``mesh``
+    the parameters are DTensors on it (``shard_train_state``): the batch is
+    split over its batch axes and the step runs ``on_mesh``."""
 
     def train_step(params, opt_state, batch, compress_residual=None):
         loss, grads = loss_and_grads(cfg, params, batch, tcfg.microbatches)
@@ -93,7 +100,60 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         new_p, new_o, gnorm = adamw_update(tcfg.opt, params, grads, opt_state)
         return loss, gnorm, new_p, new_o, new_residual
 
-    return train_step
+    if mesh is None:
+        return train_step
+
+    def sharded_step(params, opt_state, batch, compress_residual=None):
+        with on_mesh(mesh):
+            return train_step(params, opt_state, shard_batch(batch, mesh), compress_residual)
+
+    return sharded_step
+
+
+def shard_train_state(cfg: ModelConfig, params: dict, mesh,
+                      opt_state: dict | None = None) -> tuple[dict, dict]:
+    """(params, opt state) as DTensors on ``mesh``: the parameters by the
+    reference's rules (``tree_param_specs`` over every stack), the moments
+    stacked and laid out by ``opt_state_specs`` (ZeRO-1 over the batch
+    axes).  ``opt_state`` (a per-layer tree, e.g. restored from a
+    checkpoint) gives their values; zeros by default."""
+    specs = tree_param_specs(params, mesh["model"].size(), stacked_prefixes=STACKS)
+    ospecs = opt_state_specs(specs, params, batch_axes(mesh.mesh_dim_names),
+                             batch_size_of(mesh))["m"]
+    d_params = distribute_tree(params, specs, mesh)
+    if opt_state is None:
+        return d_params, init_stacked_opt_state(d_params, ospecs, mesh)
+    from torch.distributed.tensor import distribute_tensor
+
+    def stacked(tree):
+        return {name: distribute_tensor(stack(name, ts), mesh, to_placements(ospecs[name], mesh))
+                for name, ts in stacked_leaves(tree)}
+
+    return d_params, {"m": stacked(opt_state["m"]), "v": stacked(opt_state["v"]),
+                      "step": opt_state["step"]}
+
+
+def gather_train_state(params: dict, opt_state: dict) -> tuple[dict, dict]:
+    """The whole (params, per-layer opt state) of a sharded train state,
+    plain tensors on every rank: what ``checkpoint_tree`` and a comparison
+    take."""
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    plain = tree_map(whole, params)
+    if not is_stacked_state(opt_state):
+        return plain, {"m": tree_map(whole, opt_state["m"]),
+                       "v": tree_map(whole, opt_state["v"]), "step": opt_state["step"]}
+
+    def unstack(moments):
+        by_name = {}
+        for name, ps in stacked_leaves(plain):
+            t = whole(moments[name])
+            by_name[name] = [t[i] for i in range(len(ps))] if in_stack(name) else [t]
+        return from_stacked(plain, by_name)
+
+    return plain, {"m": unstack(opt_state["m"]), "v": unstack(opt_state["v"]),
+                   "step": opt_state["step"]}
 
 
 def checkpoint_tree(cfg: ModelConfig, params: dict, opt_state: dict) -> dict:

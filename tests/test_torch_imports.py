@@ -78,6 +78,9 @@ def test_every_submodule_imports_without_jax():
     assert {f"repro_torch.training.{m}" for m in (
         "tokenizer", "data", "optimizer", "checkpoint", "train_lib")} <= names
     assert {"repro_torch.launch.train", "repro_torch.launch.serve"} <= names
+    assert {"repro_torch.distributed.sharding", "repro_torch.distributed.elastic",
+            "repro_torch.distributed.local", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.configs.shapes"} <= names
 
 
 def test_default_device_raises_without_cuda(ssb_small, monkeypatch):

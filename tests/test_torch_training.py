@@ -397,8 +397,11 @@ def test_train_launcher_then_serve_launcher_restores_the_checkpoint(tmp_path, ca
     assert "[serve] restored canonicalizer from step 1" in text
     summary = json.loads(text.strip().splitlines()[-1])
     assert summary["failures"] == summary["degraded"] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_launcher.main(["--dryrun-mesh", "single"])
+    capsys.readouterr()
+    res = train_launcher.main(["--dryrun-mesh", "single"])
+    assert res["status"] == "ok" and res["shape"] == "train_4k"
+    assert res["mesh_shape"] == {"data": 16, "model": 16}
+    assert "'status': 'ok'" in capsys.readouterr().out
 
 
 def test_serve_restores_the_reference_training_checkpoint(ssb_small, tmp_path, capsys):
