@@ -3075,7 +3075,8 @@ DIST_FAIL_AFTER = 2  # the elastic run loses its "device" after this many steps
 DIST_DECODE = 8  # greedy decode steps after the sharded prefill
 DIST_SSD_DEPTH = 4  # mamba2-780m's layers in the sharded prefill
 DIST_PROFILE_STEPS = 2  # train steps traced per run for device ms per step
-DIST_DRYRUN = (("mamba2-780m", "decode_32k"), ("gemma-2b", "train_4k"))
+DIST_DRYRUN = (("mamba2-780m", "decode_32k", "baseline"), ("gemma-2b", "train_4k", "baseline"),
+               ("gemma-2b", "train_4k", "zero3_params"))
 
 
 def _free_port() -> int:
@@ -3104,16 +3105,17 @@ def _same(a, b, what: str) -> None:
 
 
 def _dryrun_procs(out_dir: str) -> list:
-    """The dry-run launcher on two cells, each in a process of its own (the
-    fake process group cannot share one with this one's), started now."""
+    """The dry-run launcher on the ``DIST_DRYRUN`` cells, each in a process
+    of its own (the fake process group cannot share one with this one's),
+    started now."""
     env = {**__import__("os").environ,
            "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
     procs = []
-    for arch, shape in DIST_DRYRUN:
-        out = str(Path(out_dir) / f"{arch}_{shape}.json")
+    for arch, shape, variant in DIST_DRYRUN:
+        out = str(Path(out_dir) / f"{arch}_{shape}_{variant}.json")
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-               "--shape", shape, "--mesh", "single", "--out", out]
-        procs.append((arch, shape, out, subprocess.Popen(
+               "--shape", shape, "--mesh", "single", "--variant", variant, "--out", out]
+        procs.append((arch, shape, variant, out, subprocess.Popen(
             cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     return procs
 
@@ -3129,20 +3131,26 @@ def dist_phase(seed: int, device_type: str = "cuda", backend: str = "nccl") -> d
       moment equal bit for bit (one rank runs the same aten ops on the same
       local tensors), ``flash_attn`` and ``flash_attn_bwd`` launched once
       per layer per step in both runs (through ``local_map`` on the mesh);
+    * zero3: the same steps with the parameters stacked in their moments'
+      layout (``shard_train_state(zero3=True)``, the reference's
+      ``zero3_params``), gathered at the start of each step: the same
+      checks against the plain run, parameters gathered back per layer;
     * elastic: the same steps under ``ElasticController``, a
       ``DeviceLossError([])`` after step ``DIST_FAIL_AFTER`` and a restore
       from that step's checkpoint: the final parameters equal the
       uninterrupted run's bit for bit;
     * serve: 8 SSB NL prompts, prefill and ``DIST_DECODE`` greedy decode
-      steps on the mesh (caches laid out by ``dryrun.cache_spec_fn``):
-      logits and tokens equal the plain run's bit for bit;
+      steps on the mesh (caches laid out by ``dryrun.cache_spec_fn``), from
+      the per-layer DTensor parameters and from the ZeRO-3 ones through
+      ``gather_params``: logits and tokens equal the plain run's bit for
+      bit;
     * ssd: mamba2-780m at full width, ``DIST_SSD_DEPTH`` layers: prefill on
       the mesh equals the plain one, ``ssd_scan`` launched once per layer;
     * dry-run: ``python -m repro_torch.launch.dryrun`` on ``DIST_DRYRUN``
       (production single-pod mesh, a fake group of 256 in a process of its
       own, on the host's CPU): status ok, ``argument_bytes`` equal to the
       spec arithmetic.
-    Wall and device ms per train step, DTensor against plain."""
+    Wall and device ms per train step, DTensor and ZeRO-3 against plain."""
     import contextlib
     import os
     import tempfile
@@ -3154,8 +3162,8 @@ def dist_phase(seed: int, device_type: str = "cuda", backend: str = "nccl") -> d
     from repro_torch.configs.registry import get
     from repro_torch.distributed.elastic import (DeviceLossError, ElasticController,
                                                  build_mesh, plan_remesh)
-    from repro_torch.distributed.sharding import (batch_axes, distribute_tree, on_mesh,
-                                                  shard_batch, tree_param_specs)
+    from repro_torch.distributed.sharding import (batch_axes, distribute_tree, gather_params,
+                                                  on_mesh, shard_batch, tree_param_specs)
     from repro_torch.kernels.binding import launch_counts, reset_launch_counts
     from repro_torch.launch import dryrun
     from repro_torch.models import mamba2
@@ -3211,12 +3219,13 @@ def dist_phase(seed: int, device_type: str = "cuda", backend: str = "nccl") -> d
 
         plain_step = make_train_step(cfg, tcfg)
         dist_step = make_train_step(cfg, tcfg, mesh=mesh)
-        times, launches = {}, {}
-        for name in ("plain", "dtensor"):
+        times, launches, runs = {}, {}, {}
+        for name in ("plain", "dtensor", "zero3"):
             if name == "plain":
                 p, o, step_fn = params0, init_opt_state(params0), plain_step
             else:
-                (p, o), step_fn = shard_train_state(cfg, params0, mesh), dist_step
+                (p, o), step_fn = shard_train_state(cfg, params0, mesh,
+                                                    zero3=(name == "zero3")), dist_step
             reset_launch_counts()
             walls.clear()
             p, o, stats = run(step_fn, p, o)
@@ -3236,21 +3245,21 @@ def dist_phase(seed: int, device_type: str = "cuda", backend: str = "nccl") -> d
                            "wall_ms_by_step": list(walls),
                            "device_ms_per_step": device / DIST_PROFILE_STEPS}
             del q, r
-            if name == "plain":
-                plain = result
-            else:
-                sharded = result
+            runs[name] = result
+        plain = runs["plain"]
         want = cfg.n_layers * DIST_STEPS
         for name, c in launches.items():
             if (c.get("flash_attn", 0), c.get("flash_attn_bwd", 0)) != (want, want):
                 raise AssertionError(f"[dist] {name}: {DIST_STEPS} steps launched {c}, not "
                                      f"{want} flash_attn and flash_attn_bwd")
-        _same(sharded["losses"], plain["losses"], "losses")
-        _same(sharded["gnorms"], plain["gnorms"], "gradient norms")
-        dp, do = gather_train_state(sharded["params"], sharded["opt"])
-        _same(dp, plain["params"], "params")
-        _same(do["m"], plain["opt"]["m"], "moments m")
-        _same(do["v"], plain["opt"]["v"], "moments v")
+        for name in ("dtensor", "zero3"):
+            run_ = runs[name]
+            _same(run_["losses"], plain["losses"], f"{name} losses")
+            _same(run_["gnorms"], plain["gnorms"], f"{name} gradient norms")
+            dp, do = gather_train_state(run_["params"], run_["opt"])
+            _same(dp, plain["params"], f"{name} params")
+            _same(do["m"], plain["opt"]["m"], f"{name} moments m")
+            _same(do["v"], plain["opt"]["v"], f"{name} moments v")
 
         # elastic: lose the "device" after DIST_FAIL_AFTER steps, restart
         # from that step's checkpoint on a re-planned mesh
@@ -3321,10 +3330,15 @@ def dist_phase(seed: int, device_type: str = "cuda", backend: str = "nccl") -> d
         got_serve = serve(dparams, True)
         serve_launches = dict(launch_counts())
         _same(got_serve, want_serve, "prefill and decode")
-        if (serve_launches.get("flash_attn"), serve_launches.get("decode_attn")) != \
-                (cfg.n_layers, cfg.n_layers * DIST_DECODE):
-            raise AssertionError(f"[dist] serve launched {serve_launches}")
-        del dparams
+        reset_launch_counts()
+        got_serve = serve(gather_params(runs["zero3"]["params"]), True)
+        zero3_serve = dict(launch_counts())
+        _same(got_serve, want_serve, "prefill and decode from the ZeRO-3 parameters")
+        for what, c in (("serve", serve_launches), ("zero3 serve", zero3_serve)):
+            if (c.get("flash_attn"), c.get("decode_attn")) != \
+                    (cfg.n_layers, cfg.n_layers * DIST_DECODE):
+                raise AssertionError(f"[dist] {what} launched {c}")
+        del dparams, runs
 
         # ssd: mamba2-780m prefill at full width, cut depth
         mcfg, mparams = cut_depth(get("mamba2-780m"),
@@ -3352,28 +3366,30 @@ def dist_phase(seed: int, device_type: str = "cuda", backend: str = "nccl") -> d
 
     t0 = time.perf_counter()
     dry = {}
-    for arch, shape, out, proc in procs:
+    for arch, shape, variant, out, proc in procs:
         log = proc.communicate(timeout=600)[0]
         if proc.returncode != 0:
-            raise AssertionError(f"[dist] dry-run {arch} {shape} exited "
+            raise AssertionError(f"[dist] dry-run {arch} {shape} {variant} exited "
                                  f"{proc.returncode}: {log[-2000:]}")
-        rec = json.load(open(out))[f"{arch}|{shape}|single"]
-        want_b = dryrun.argument_bytes(get(arch), shape, dryrun.MESH_SHAPES["single"])
+        key = f"{arch}|{shape}|single" + ("" if variant == "baseline" else f"|{variant}")
+        rec = json.load(open(out))[key]
+        want_b = dryrun.argument_bytes(get(arch), shape, dryrun.MESH_SHAPES["single"], variant)
         if rec["status"] != "ok" or rec["memory"]["argument_bytes"] != want_b:
-            raise AssertionError(f"[dist] dry-run {arch} {shape}: {rec.get('status')}, "
+            raise AssertionError(f"[dist] dry-run {key}: {rec.get('status')}, "
                                  f"argument bytes {rec.get('memory')} vs {want_b}")
-        dry[f"{arch}|{shape}"] = {"argument_bytes": want_b,
-                                  "peak_bytes": rec["memory"]["peak_bytes"],
-                                  "collectives": rec["collectives"]["count_by_kind"],
-                                  "trace_s": rec["trace_s"], "setup_s": rec["setup_s"]}
+        dry[key] = {"argument_bytes": want_b, "peak_bytes": rec["memory"]["peak_bytes"],
+                    "collectives": rec["collectives"]["count_by_kind"],
+                    "trace_s": rec["trace_s"], "setup_s": rec["setup_s"]}
     return {"launches": {"train_plain": launches["plain"], "train": launches["dtensor"],
+                         "train_zero3": launches["zero3"],
                          "serve_plain": serve_plain, "serve": serve_launches,
+                         "serve_zero3": zero3_serve,
                          "ssd_plain": ssd_plain, "ssd": ssd_launches},
             "summary": {
                 "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
                 "train_steps": DIST_STEPS,
                 "losses": [float(x) for x in plain["losses"]],
-                "train_bit_identical": True, "times": times,
+                "train_bit_identical": True, "zero3_bit_identical": True, "times": times,
                 "elastic": {"restarts": ctl.restarts, "resumed_at": attempts,
                             "wall_s": elastic_s, "bit_identical": True},
                 "serve": {"prompts": len(texts), "prompt_len": plen_,
@@ -3724,6 +3740,10 @@ def main(argv=None) -> int:
                                 ("dist train", distd["launches"]["train"],
                                  ("flash_attn", "flash_attn_bwd")),
                                 ("dist serve", distd["launches"]["serve"],
+                                 ("flash_attn", "decode_attn")),
+                                ("dist zero3 train", distd["launches"]["train_zero3"],
+                                 ("flash_attn", "flash_attn_bwd")),
+                                ("dist zero3 serve", distd["launches"]["serve_zero3"],
                                  ("flash_attn", "decode_attn")),
                                 ("dist ssd", distd["launches"]["ssd"], ("ssd_scan",)),
                                 ("reduced", small["launches"], ("flash_attn", "decode_attn")),

@@ -305,3 +305,60 @@ def distribute_tree(params, spec_tree, mesh):
         return distribute_tensor(t.detach(), mesh, to_placements(spec, mesh))
 
     return tree_map_specs(put, params, spec_tree)
+
+
+# ------------------------------------------------------------------ ZeRO-3
+
+
+def zero3_params(params: dict, specs: dict, mesh) -> dict:
+    """A per-layer parameter tree in the ZeRO-3 layout, the reference's
+    ``zero3_params`` variant: {name: DTensor}, names and order as
+    ``optimizer.stacked_leaves``, a stack's leaf one (L, ...) tensor, each
+    laid out by ``specs[name]``, its ZeRO-1 moment spec
+    (``opt_state_specs(...)["m"]``): the data axes split the first
+    unsplit dim that divides, for a stack often the layer axis."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..training.optimizer import stack, stacked_leaves
+
+    return {name: distribute_tensor(stack(name, [t.detach() for t in ts]), mesh,
+                                    to_placements(specs[name], mesh))
+            for name, ts in stacked_leaves(params)}
+
+
+def gather_params(stacked: dict) -> dict:
+    """The per-layer tree the models read, from ZeRO-3 parameters: each
+    stacked leaf redistributed once from its ZeRO-3 layout to its
+    tensor-parallel one (the reference's rule for the stacked shape: whole
+    over the data axes and along the layer axis; an all-gather in the
+    parameters' dtype), then split into its layers, a local split of a
+    whole dim.  A leaf that no data axis splits moves nothing.  Not
+    differentiable: ``zero3_grads`` is its adjoint."""
+    from ..training.optimizer import in_stack, unflatten
+
+    by_name = {}
+    for name, t in stacked.items():
+        if is_dtensor(t):
+            mesh = t.device_mesh
+            model = mesh.size(mesh.mesh_dim_names.index("model"))
+            pls = to_placements(param_spec(name, tuple(t.shape), model, in_stack(name)), mesh)
+            if tuple(t.placements) != pls:
+                t = t.redistribute(t.device_mesh, pls)
+        by_name[name] = list(t.unbind(0)) if in_stack(name) else [t]
+    return unflatten(by_name)
+
+
+def zero3_grads(grads: dict, like: dict) -> dict:
+    """Per-layer gradients of ``gather_params(like)``'s tree as gradients of
+    the stacked leaves, in their ZeRO-3 layout: each leaf's layers stacked
+    (pending sums kept pending) and redistributed once to ``like[name]``'s
+    placements, which reduce-scatters a pending sum over the data axes."""
+    from ..training.optimizer import stack, stacked_leaves
+
+    out = {}
+    for name, gs in stacked_leaves(grads):
+        g, t = stack(name, gs), like[name]
+        if is_dtensor(g) and tuple(g.placements) != tuple(t.placements):
+            g = g.redistribute(t.device_mesh, t.placements)
+        out[name] = g
+    return out

@@ -9,8 +9,12 @@ FakeTensors (nothing is allocated) laid out by the sharding rules
 (``distributed.sharding.tree_param_specs`` over every stack, ZeRO-1
 ``training.optimizer.opt_state_specs``, ``cache_specs``), and the real step
 runs on them: the train step (loss, backward, ``adamw_update``),
-``prefill`` or ``decode_step``, under the activation hints.  Recorded per
-cell, under the JAX package's keys where the meaning is the same:
+``prefill`` or ``decode_step``, under the activation hints.  The
+``zero3_params`` variant stores the parameters stacked and laid out as
+their moments (``sharding.zero3_params``); its step, of every kind, begins
+with their gather (``sharding.gather_params``), so the gather's collectives
+and its gathered stacks are counted.  Recorded per cell, under the JAX
+package's keys where the meaning is the same:
 
   * ``memory.argument_bytes``: rank 0's shards of every argument (params,
     moments, batch; caches for decode), summed exactly; JAX's int32 step
@@ -23,10 +27,17 @@ cell, under the JAX package's keys where the meaning is the same:
     formulas); ``flops_global``: the same formulas on the global shapes of
     every DTensor op, plus each ``local_map`` body (the attention and SSD
     wrappers, the MoE experts) once per shard of the work it splits;
+  * ``bytes_accessed_per_device``: the input plus output bytes of each of
+    rank 0's ops, views, allocations and collectives left out, before any
+    fusion (an upper bound, as XLA's "bytes accessed" is);
+    ``bytes_global``: the same on the global shapes of every DTensor op
+    (its output's shape from the op run on meta tensors), plus each
+    ``local_map`` body's once per shard, as the FLOPs;
   * ``collectives``: bytes (each op's output on rank 0) and counts by kind
-    of every ``torch.ops._c10d_functional`` op the step issues.  The
-    collectives are DTensor's choices, not GSPMD's: no parity with the JAX
-    dry-run's counts is implied.
+    and by mesh axis (``bytes_by_axis``, ``count_by_axis``) of every
+    ``torch.ops._c10d_functional`` op the step issues.  The collectives are
+    DTensor's choices, not GSPMD's: no parity with the JAX dry-run's counts
+    is implied.  ``launch/roofline.py`` turns a record into time terms.
 
 Why the CPU: the JAX dry-run lowers on 512 host CPU devices, where its
 kernels take their ``xla`` versions; this one likewise runs the plain
@@ -38,6 +49,7 @@ is refused.
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k --mesh single
     python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.json
+    python -m repro_torch.launch.dryrun --all --shape train_4k --variant zero3_params
 """
 from __future__ import annotations
 
@@ -56,16 +68,17 @@ import torch
 from ..configs.registry import ASSIGNED, SUBQUADRATIC, get
 from ..configs.shapes import SHAPES, input_specs
 from ..distributed import local
-from ..distributed.sharding import (P, batch_axes, local_shape, on_mesh, to_placements,
-                                    tree_map_specs, tree_param_specs)
+from ..distributed.sharding import (P, batch_axes, gather_params, local_shape, on_mesh,
+                                    to_placements, tree_map_specs, tree_param_specs)
 from ..kernels.binding import plain_only
 from ..models.model import STACKS, ModelConfig, shapes_to_struct
-from ..training.optimizer import AdamWConfig, adamw_update, opt_state_specs
+from ..training.optimizer import (AdamWConfig, adamw_update, opt_state_specs, stack,
+                                  stacked_leaves)
 from .mesh import make_production_mesh
 
 MESH_SHAPES = {"single": {"data": 16, "model": 16},
                "multi": {"pod": 2, "data": 16, "model": 16}}
-VARIANTS = ("baseline", "no_zero1", "kv_seq_shard", "zero1_bf16_gather")
+VARIANTS = ("baseline", "no_zero1", "kv_seq_shard", "zero1_bf16_gather", "zero3_params")
 
 # ---------------------------------------------------------- the fake group
 
@@ -145,6 +158,46 @@ _KINDS = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
           "all_to_all_single": "all-to-all", "broadcast": "broadcast"}
 
 
+# ops that move no bytes of their own: views, allocations
+_NO_BYTES = frozenset({"_unsafe_view", "empty", "empty_like", "empty_strided", "new_empty",
+                       "new_empty_strided"})
+
+
+def _moves_bytes(func) -> bool:
+    return not (func.is_view or func.namespace == "_c10d_functional"
+                or func._overloadpacket.__name__ in _NO_BYTES)
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of the tensors in a pytree, each at its own (for a DTensor:
+    global) shape."""
+    from torch.utils._pytree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _global_out_bytes(func, args, kwargs) -> int:
+    """Output bytes of a DTensor op on its global shapes: the op run on meta
+    tensors of those shapes, with every mode of the trace set aside; 0 for
+    an op whose output a meta tensor cannot tell (a value read back)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    from torch.utils._pytree import tree_map
+
+    def meta(x):
+        if isinstance(x, torch.Tensor):
+            return torch.empty_strided(tuple(x.shape), tuple(x.stride()), dtype=x.dtype,
+                                       device="meta")
+        return torch.device("meta") if isinstance(x, torch.device) else x
+
+    with _disable_current_modes():
+        margs, mkwargs = tree_map(meta, (args, kwargs))
+        try:
+            return _tensor_bytes(func(*margs, **mkwargs))
+        except (RuntimeError, NotImplementedError):
+            return 0
+
+
 def _recorder_class():
     from torch._guards import active_fake_mode
     from torch.distributed.tensor import DTensor
@@ -152,18 +205,24 @@ def _recorder_class():
     from torch.utils.flop_counter import flop_registry
 
     class Recorder(TorchDispatchMode):
-        """FLOPs on global and local shapes and the collectives of a step.
-        A DTensor op is counted on its global shapes and handed on
+        """FLOPs and bytes on global and local shapes and the collectives of
+        a step.  A DTensor op is counted on its global shapes and handed on
         (``NotImplemented``) to DTensor, whose local ops and collectives
         then come back here; ops of DTensor's own sharding propagation
-        (run under a fake mode of its own) are not counted."""
+        (run under a fake mode of its own) are not counted.  ``axes`` maps
+        a process group's name to its mesh axis."""
 
-        def __init__(self):
+        def __init__(self, axes: dict):
             super().__init__()
+            self.axes = axes
             self.flops_global = 0
             self.flops_device = 0
+            self.bytes_global = 0
+            self.bytes_device = 0
             self.bytes_by_kind: dict[str, int] = {}
             self.count_by_kind: dict[str, int] = {}
+            self.bytes_by_axis: dict[str, int] = {}
+            self.count_by_axis: dict[str, int] = {}
 
         def __enter__(self):
             self._fake = active_fake_mode()
@@ -175,6 +234,9 @@ def _recorder_class():
             if any(issubclass(t, DTensor) for t in types):
                 if pkt in flop_registry:
                     self.flops_global += flop_registry[pkt](*args, **kwargs, out_val=None)
+                if pkt is not None and _moves_bytes(func):
+                    self.bytes_global += _tensor_bytes((args, kwargs)) + \
+                        _global_out_bytes(func, args, kwargs)
                 return NotImplemented
             out = func(*args, **kwargs)
             if pkt is None or _PROPAGATING.get() or active_fake_mode() is not self._fake:
@@ -183,12 +245,19 @@ def _recorder_class():
                 n = flop_registry[pkt](*args, **kwargs, out_val=out)
                 self.flops_device += n
                 self.flops_global += n * local.split_factor()
+            if _moves_bytes(func):
+                n = _tensor_bytes((args, kwargs, out))
+                self.bytes_device += n
+                self.bytes_global += n * local.split_factor()
             if func.namespace == "_c10d_functional" and pkt.__name__ in _KINDS:
                 kind = _KINDS[pkt.__name__]
-                outs = out if isinstance(out, (list, tuple)) else [out]
-                nbytes = sum(o.numel() * o.element_size() for o in outs)
-                self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes
-                self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) + 1
+                axis = next((self.axes[a] for a in args if isinstance(a, str) and a in self.axes),
+                            "other")
+                nbytes = _tensor_bytes(out)
+                for by, key in ((self.bytes_by_kind, kind), (self.bytes_by_axis, axis)):
+                    by[key] = by.get(key, 0) + nbytes
+                for by, key in ((self.count_by_kind, kind), (self.count_by_axis, axis)):
+                    by[key] = by.get(key, 0) + 1
             return out
 
     return Recorder
@@ -298,9 +367,10 @@ def argument_bytes(cfg: ModelConfig, shape_name: str, mesh_shape: dict,
                    variant: str = "baseline", global_batch: int | None = None,
                    seq_len: int | None = None) -> int:
     """Rank 0's bytes of a cell's arguments, from the specs alone:
-    parameters; for train, the ZeRO-1 moments (float32), JAX's int32 step
-    counter and the batch split over the batch axes; for prefill the batch;
-    for decode the token, the positions and the caches (``cache_specs``)."""
+    parameters (under ``zero3_params`` laid out as their moments); for
+    train, the ZeRO-1 moments (float32), JAX's int32 step counter and the
+    batch split over the batch axes; for prefill the batch; for decode the
+    token, the positions and the caches (``cache_specs``)."""
     shape = SHAPES[shape_name]
     base = variant[:-3] if variant.endswith("_sp") else variant
     pshapes, pspecs, ospecs = _cell_layout(cfg, mesh_shape, base)
@@ -310,7 +380,8 @@ def argument_bytes(cfg: ModelConfig, shape_name: str, mesh_shape: dict,
     total = 0
     for name, (s, spec) in stacked_specs(pspecs, pshapes).items():
         dtype = torch.float32 if name.rsplit("/", 1)[-1] in f32 else cfg.dtype
-        total += _shard_bytes(s, dtype, spec, mesh_shape)
+        stored = ospecs[name] if base == "zero3_params" else spec
+        total += _shard_bytes(s, dtype, stored, mesh_shape)
         if shape.kind == "train":
             total += 2 * _shard_bytes(s, torch.float32, ospecs[name], mesh_shape)
     baxes = batch_axes(tuple(mesh_shape))
@@ -390,9 +461,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, with_opt: bool = True,
     (axis -> size, in the mesh's order), ``global_batch`` and ``seq_len``
     replace the arch's config, the production mesh and the shape's sizes
     (small cells for tests)."""
-    if variant.startswith("zero3_params"):
-        raise NotImplementedError(
-            "zero3_params needs stacked DTensor parameters (ROADMAP.md Queue 1)")
     base = variant[:-3] if variant.endswith("_sp") else variant
     if base not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: {VARIANTS} or *_sp")
@@ -426,12 +494,21 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, with_opt: bool = True,
             hints["cache"] = cache_spec_fn(cfg, baxes, mesh, shape_name == "long_500k",
                                            kv_seq_shard=(base == "kv_seq_shard"))
         pshapes, pspecs, ospecs = _cell_layout(cfg, mesh_shape, base)
+        zero3 = base == "zero3_params"
         opt_cfg = AdamWConfig()
+        axes = {mesh.get_group(i).group_name: a for i, a in enumerate(mesh.mesh_dim_names)}
         with FakeTensorMode(), plain_only("the dry-run"), on_mesh(mesh, hints):
             struct = shapes_to_struct(pshapes, cfg.dtype, mod.FLOAT32_LEAVES)
             train = shape.kind == "train"
-            params = tree_map_specs(lambda t, s: _sharded_empty(t, s, mesh, train),
-                                    struct, pspecs)
+            if zero3:
+                params = {name: _sharded_empty(stack(name, ts), ospecs[name], mesh)
+                          for name, ts in stacked_leaves(struct)}
+            else:
+                params = tree_map_specs(lambda t, s: _sharded_empty(t, s, mesh, train),
+                                        struct, pspecs)
+
+            def layers():  # the parameters as the models read them
+                return gather_params(params) if zero3 else params
             ins = input_specs(cfg, shape)
             bspec = P(baxes)
 
@@ -443,7 +520,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, with_opt: bool = True,
                 from ..training.optimizer import init_stacked_opt_state
                 from ..training.train_lib import loss_and_grads
 
-                opt = init_stacked_opt_state(params, ospecs, mesh)
+                opt = init_stacked_opt_state(struct, ospecs, mesh)
                 batch = {k: batch_of(v) for k, v in ins.items()}
                 args = (params, opt, batch)
                 extra = 4  # JAX's int32 step counter
@@ -462,7 +539,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, with_opt: bool = True,
 
                 def step():
                     with torch.no_grad():
-                        return mod.prefill(cfg, params, cache_len=shape.seq_len, **batch)
+                        return mod.prefill(cfg, layers(), cache_len=shape.seq_len, **batch)
             else:
                 tok_spec = bspec if shape.global_batch >= 32 else P(None)
                 token = _sharded_empty(ins["token"], tok_spec, mesh)
@@ -472,12 +549,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, with_opt: bool = True,
 
                 def step():
                     with torch.no_grad():
-                        return mod.decode_step(cfg, params, token, caches, pos)
+                        return mod.decode_step(cfg, layers(), token, caches, pos)
 
             arg_bytes = _local_bytes(args) + extra
             setup_s = time.time() - t0
             t1 = time.time()
-            rec = _recorder_class()()
+            rec = _recorder_class()(axes)
             mt = _mem_tracker()
             mt.track_external(*_locals(args))
             with _marking_propagation(), mt, rec:
@@ -486,6 +563,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, with_opt: bool = True,
             peak = sum(v.get("Total", 0) for v in mt.get_tracker_snapshot("peak").values())
             out_bytes = _local_bytes(out)
     coll = {"bytes_by_kind": rec.bytes_by_kind, "count_by_kind": rec.count_by_kind,
+            "bytes_by_axis": rec.bytes_by_axis, "count_by_axis": rec.count_by_axis,
             "total_bytes": sum(rec.bytes_by_kind.values())}
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "variant": variant,
@@ -493,6 +571,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, with_opt: bool = True,
         "mesh_shape": mesh_shape,
         "flops_global": rec.flops_global,
         "flops_per_device": rec.flops_device,
+        "bytes_global": rec.bytes_global,
+        "bytes_accessed_per_device": rec.bytes_device,
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,
@@ -522,15 +602,29 @@ def cells(include_long: bool = True):
                 yield arch, shape_name, mesh_kind
 
 
+def _recorded(arch: str, shape_name: str, mesh_kind: str, variant: str) -> dict:
+    """``run_cell``'s record, or a record of its failure."""
+    try:
+        return run_cell(arch, shape_name, mesh_kind, variant=variant)
+    except Exception as e:  # record failures; they are bugs to fix
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "variant": variant,
+                "status": "error", "error": f"{type(e).__name__}: {e}",
+                "trace": traceback.format_exc()[-2000:]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="every cell (of --arch and --shape where given), both meshes")
     ap.add_argument("--out", default="results/dryrun_torch.json")
     ap.add_argument("--variant", default="baseline",
-                    help="baseline | kv_seq_shard | no_zero1 | zero1_bf16_gather | *_sp")
+                    help="baseline | kv_seq_shard | no_zero1 | zero1_bf16_gather | "
+                         "zero3_params | *_sp")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once, each in a fresh process")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
 
@@ -540,22 +634,16 @@ def main(argv=None):
         with open(args.out) as f:
             results = json.load(f)
 
-    todo = (list(cells()) if args.all
-            else [(args.arch, args.shape, args.mesh)])
-    for arch, shape_name, mesh_kind in todo:
-        key = f"{arch}|{shape_name}|{mesh_kind}"
-        if args.variant != "baseline":
-            key += f"|{args.variant}"
+    todo = ([c for c in cells() if args.arch in (None, c[0]) and args.shape in (None, c[1])]
+            if args.all else [(args.arch, args.shape, args.mesh)])
+    suffix = "" if args.variant == "baseline" else f"|{args.variant}"
+    keys = {f"{a}|{s}|{m}{suffix}": (a, s, m, args.variant) for a, s, m in todo}
+    for key in list(keys):
         if key in results and results[key].get("status") == "ok" and not args.force:
             print(f"SKIP {key}")
-            continue
-        print(f"RUN  {key} ...", flush=True)
-        try:
-            res = run_cell(arch, shape_name, mesh_kind, variant=args.variant)
-        except Exception as e:  # record failures; they are bugs to fix
-            res = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
-                   "status": "error", "error": f"{type(e).__name__}: {e}",
-                   "trace": traceback.format_exc()[-2000:]}
+            del keys[key]
+
+    def done(key: str, res: dict) -> None:
         results[key] = res
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
@@ -565,6 +653,22 @@ def main(argv=None):
         print(f"DONE {key}: {status} {extra}", flush=True)
         if not args.all:
             print(json.dumps(res))
+
+    if args.jobs > 1:
+        import concurrent.futures as cf
+        import multiprocessing as mp
+
+        # the train cells first: they take longest
+        order = sorted(keys, key=lambda k: keys[k][1] != "train_4k")
+        with cf.ProcessPoolExecutor(args.jobs, mp_context=mp.get_context("spawn"),
+                                    max_tasks_per_child=1) as pool:
+            futs = {pool.submit(_recorded, *keys[k]): k for k in order}
+            for fut in cf.as_completed(futs):
+                done(futs[fut], fut.result())
+    else:
+        for key, cell in keys.items():
+            print(f"RUN  {key} ...", flush=True)
+            done(key, _recorded(*cell))
 
     ok = sum(1 for r in results.values() if r.get("status") == "ok")
     print(f"\n{ok}/{len(results)} cells ok")

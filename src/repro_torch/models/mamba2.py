@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed import local
 from ..distributed.sharding import cache_zeros, hint
 from ..kernels.ssd_scan.ops import ssd_scan, ssd_step
 from .layers import rmsnorm
@@ -78,7 +79,13 @@ def ssd_overrides(cfg: ModelConfig, layers: list) -> None:
 
 
 def _causal_conv(x, w):
-    """x: (B, S, di); w: (K, di) depthwise causal conv, K taps unrolled."""
+    """x: (B, S, di); w: (K, di) depthwise causal conv, K taps unrolled.
+    DTensors go through ``distributed.local.call``: each rank convolves its
+    own batch rows and channels over the whole sequence (DTensor's padding
+    of a split tensor fails in some torch versions)."""
+    if local.any_dtensor(x, w):
+        return local.call(lambda _, xl, wl: _causal_conv(xl, wl),
+                          [local.Arg(x, 0, 2), local.Arg(w, None, 1)], [(0, 2)])
     k = w.shape[0]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros_like(x)

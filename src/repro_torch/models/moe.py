@@ -248,7 +248,7 @@ def _routed_sharded(p: dict, xt, cfg: ModelConfig):
         flat = ids.reshape(-1)
         counts = flat.new_zeros(n_exp).scatter_add_(0, flat, torch.ones_like(flat))[None]
         for d in reversed(data_dims):  # the major axis gathered last
-            counts = funcol.all_gather_single(counts, 0, (mesh, d))
+            counts = funcol.all_gather_tensor(counts, 0, (mesh, d))
         before = counts[:shard].sum(0) if shard else torch.zeros_like(counts[0])
         return before.reshape(expert_shards(cfg), -1)
 

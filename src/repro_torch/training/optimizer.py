@@ -37,6 +37,13 @@ order of ``stacked_leaves``, as DTensors laid out by ``opt_state_specs``.
 leaf's gradients and parameters, runs the same elementwise update in the
 moments' layout, and hands the parameters back per layer, in their own
 layout.
+
+ZeRO-3 (the reference's ``zero3_params`` variant) stores the parameters in
+that stacked form too, each laid out by its moments' spec
+(``distributed.sharding.zero3_params``): parameters, gradients and moments
+then share one layout, ``adamw_update`` runs elementwise with no copy and
+returns the parameters stacked, and the compression takes the stacked
+gradients as they are.
 """
 from __future__ import annotations
 
@@ -73,6 +80,28 @@ def stacked_leaves(tree: dict) -> list[tuple[str, list]]:
             out += [(f"{k}/{n}", [v[n]]) for n in sorted(v)]
         else:
             out.append((k, [v]))
+    return out
+
+
+def is_stacked(tree: dict) -> bool:
+    """True for a tree in the stacked form ({name: tensor}, names as
+    ``stacked_leaves``): ZeRO-3 parameters or gradients, stacked moments."""
+    return all(isinstance(t, torch.Tensor) for t in tree.values())
+
+
+def unflatten(by_name: dict[str, list]) -> dict:
+    """The per-layer tree of ``stacked_leaves``-style groups, shaped by their
+    names alone (``from_stacked`` without a tree to copy)."""
+    out = {}
+    for name, ts in by_name.items():
+        k, _, n = name.partition("/")
+        if k in STACKS:
+            for lp, t in zip(out.setdefault(k, [{} for _ in ts]), ts):
+                lp[n] = t
+        elif n:
+            out.setdefault(k, {})[n] = ts[0]
+        else:
+            out[k] = ts[0]
     return out
 
 
@@ -129,7 +158,7 @@ def _stacked_shape(name: str, ps: list) -> tuple:
 
 def is_stacked_state(state: dict) -> bool:
     """True for the moments of ``init_stacked_opt_state``."""
-    return all(isinstance(t, torch.Tensor) for t in state["m"].values())
+    return is_stacked(state["m"])
 
 
 def _layout(x, like):
@@ -148,7 +177,9 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
                  moment_specs=None):
     """One AdamW step -> (new params, new state, global grad norm (a f32
     tensor, before the clip)).  ``state`` is the per-layer tree of
-    ``init_opt_state`` or the stacked form of ``init_stacked_opt_state``.
+    ``init_opt_state`` or the stacked form of ``init_stacked_opt_state``;
+    with stacked (ZeRO-3) parameters and gradients, the stacked form, and
+    the new parameters come back stacked, in their layout.
     On the stacked form the update runs in the moments' layout; with
     ``moment_specs`` (any true value: the stacked moments carry their own
     layout) the new parameters are also cast to their dtype there, so the
@@ -156,9 +187,13 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
     as the reference's ``moment_specs`` constraint does."""
     step = state["step"] + 1
     lr = cfg.lr * min(step / max(cfg.warmup_steps, 1), 1.0)  # linear warmup
-    flat_g = stacked_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for _, gs in flat_g for g in gs))
+    zero3 = is_stacked(params)
+    if zero3:
+        gnorm = torch.sqrt(_square_sum_by_layer(grads))
+    else:
+        flat_g = stacked_leaves(grads)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                               for _, gs in flat_g for g in gs))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1t = 1.0 - cfg.b1 ** step
     b2t = 1.0 - cfg.b2 ** step
@@ -171,6 +206,14 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
         if decay:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         return p.to(torch.float32) - lr * delta, m, v
+
+    if zero3:  # parameters, gradients and moments in one layout
+        new_p, new_m, new_v = {}, {}, {}
+        for name, p in params.items():
+            pf, new_m[name], new_v[name] = upd(p, grads[name], state["m"][name],
+                                               state["v"][name], p.dim() >= 2)
+            new_p[name] = pf.to(p.dtype)
+        return new_p, {"m": new_m, "v": new_v, "step": step}, gnorm
 
     if is_stacked_state(state):
         new_p, new_m, new_v = {}, {}, {}
@@ -204,6 +247,33 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
             {"m": from_stacked(params, new_m), "v": from_stacked(params, new_v),
              "step": step},
             gnorm)
+
+
+def _square_sum_by_layer(grads: dict):
+    """The sum of squares of stacked gradients, added layer by layer in
+    ``stacked_leaves`` order as the per-layer tree's norm adds them, so that
+    one rank gives its bits.  On a mesh each rank sums its own layers'
+    shards, and those few floats per leaf are then made whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    total = 0
+    for name, g in grads.items():
+        stack_ = in_stack(name)
+        if isinstance(g, DTensor):  # a pending sum is reduced before it is squared
+            g = g.redistribute(g.device_mesh, [Replicate() if pl.is_partial() else pl
+                                               for pl in g.placements])
+        local = g.to_local() if isinstance(g, DTensor) else g
+        sums = torch.stack([torch.sum(torch.square(x.to(torch.float32)))
+                            for x in (local.unbind(0) if stack_ else (local,))])
+        if isinstance(g, DTensor):
+            pls = [Shard(0) if stack_ and pl == Shard(0) else
+                   Partial() if isinstance(pl, Shard) else Replicate() for pl in g.placements]
+            sums = DTensor.from_local(sums, g.device_mesh, pls, run_check=False,
+                                      shape=(g.shape[0] if stack_ else 1,),
+                                      stride=(1,)).full_tensor()
+        for s in sums.unbind(0):
+            total = total + s
+    return total
 
 
 # ------------------------------------------------------------------- ZeRO-1
@@ -253,7 +323,18 @@ def compress_grads(grads: dict, residual: dict | None = None):
     """Error-feedback int8 quantization -> (q, scales, new residual): q an
     int8 tree, ``scales`` one f32 scalar per stacked leaf ({name: scale},
     names as ``stacked_leaves``), the residual the quantization error that
-    feeds into the next step."""
+    feeds into the next step.  Stacked (ZeRO-3) gradients give q and the
+    residual in their form and layout."""
+    if is_stacked(grads):
+        if residual is None:
+            residual = {n: torch.zeros_like(g, dtype=torch.float32) for n, g in grads.items()}
+        qs, errs, scales = {}, {}, {}
+        for name, g in grads.items():
+            gf = g.to(torch.float32) + residual[name]
+            scales[name] = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+            qs[name] = torch.clamp(torch.round(gf / scales[name]), -127, 127).to(torch.int8)
+            errs[name] = gf - qs[name].to(torch.float32) * scales[name]
+        return qs, scales, errs
     if residual is None:
         residual = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                                   device=g.device), grads)
@@ -270,6 +351,8 @@ def compress_grads(grads: dict, residual: dict | None = None):
 
 
 def decompress_grads(q: dict, scales: dict) -> dict:
+    if is_stacked(q):
+        return {name: qi.to(torch.float32) * scales[name] for name, qi in q.items()}
     by_name = {name: [qi.to(torch.float32) * scales[name] for qi in qis]
                for name, qis in stacked_leaves(q)}
     return from_stacked(q, by_name)

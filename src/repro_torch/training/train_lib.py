@@ -25,15 +25,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..distributed.sharding import (batch_axes, batch_size_of, distribute_tree, on_mesh,
-                                    shard_batch, to_placements, tree_param_specs)
+from ..distributed.sharding import (batch_axes, batch_size_of, distribute_tree, gather_params,
+                                    on_mesh, shard_batch, to_placements, tree_param_specs,
+                                    zero3_grads, zero3_params)
 from ..models.convert import params_from_jax, params_to_jax, stack_layers, unstack_layers
 from ..models.model import STACKS, ModelConfig, tree_map
 from ..olap.columnar import resolve_device
 from .checkpoint import prune_old, restore_latest, save_checkpoint, wait_pending
 from .optimizer import (AdamWConfig, adamw_update, compress_grads, decompress_grads,
                         from_stacked, in_stack, init_opt_state, init_stacked_opt_state,
-                        is_stacked_state, opt_state_specs, stack, stacked_leaves)
+                        is_stacked, is_stacked_state, opt_state_specs, stack, stacked_leaves,
+                        unflatten)
 
 
 @dataclasses.dataclass
@@ -55,7 +57,18 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict, microbatches: in
     gradients divided by their count (as the reference's ``fori_loop``);
     without, the gradients keep the parameters' dtypes.  A leaf the loss
     does not read (``embed`` of an ``embed_inputs`` config) gets zeros, as
-    from ``jax.value_and_grad``."""
+    from ``jax.value_and_grad``.
+
+    ZeRO-3 parameters (the stacked form, ``shard_train_state(zero3=True)``)
+    are gathered once (``gather_params``); the microbatches' gradients are
+    summed per layer, and one pass of the gather's adjoint (``zero3_grads``)
+    gives the stacked gradients in the parameters' layout, so the step's
+    reduce-scatters do not grow with the microbatch count."""
+    if is_stacked(params):
+        with torch.no_grad():
+            layers = gather_params(params)
+        loss, grads = loss_and_grads(cfg, layers, batch, microbatches)
+        return loss, zero3_grads(grads, params)
     mod = cfg.build()
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     flat = [t for _, ts in stacked_leaves(leaves) for t in ts]
@@ -88,8 +101,8 @@ def _like(tree: dict, flat: list) -> dict:
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
     """``train_step(params, opt_state, batch, compress_residual=None)`` ->
     (loss, gnorm, new params, new opt state, new residual).  With ``mesh``
-    the parameters are DTensors on it (``shard_train_state``): the batch is
-    split over its batch axes and the step runs ``on_mesh``."""
+    the parameters are DTensors on it (``shard_train_state``, either form):
+    the batch is split over its batch axes and the step runs ``on_mesh``."""
 
     def train_step(params, opt_state, batch, compress_residual=None):
         loss, grads = loss_and_grads(cfg, params, batch, tcfg.microbatches)
@@ -111,18 +124,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
 
 
 def shard_train_state(cfg: ModelConfig, params: dict, mesh,
-                      opt_state: dict | None = None) -> tuple[dict, dict]:
+                      opt_state: dict | None = None,
+                      zero3: bool = False) -> tuple[dict, dict]:
     """(params, opt state) as DTensors on ``mesh``: the parameters by the
     reference's rules (``tree_param_specs`` over every stack), the moments
     stacked and laid out by ``opt_state_specs`` (ZeRO-1 over the batch
-    axes).  ``opt_state`` (a per-layer tree, e.g. restored from a
-    checkpoint) gives their values; zeros by default."""
+    axes).  With ``zero3`` the parameters are stacked and laid out as their
+    moments (``zero3_params``), the reference's ``zero3_params`` variant.
+    ``opt_state`` (a per-layer tree, e.g. restored from a checkpoint) gives
+    the moments' values; zeros by default."""
     specs = tree_param_specs(params, mesh["model"].size(), stacked_prefixes=STACKS)
     ospecs = opt_state_specs(specs, params, batch_axes(mesh.mesh_dim_names),
                              batch_size_of(mesh))["m"]
-    d_params = distribute_tree(params, specs, mesh)
+    d_params = (zero3_params(params, ospecs, mesh) if zero3
+                else distribute_tree(params, specs, mesh))
     if opt_state is None:
-        return d_params, init_stacked_opt_state(d_params, ospecs, mesh)
+        return d_params, init_stacked_opt_state(params, ospecs, mesh)
     from torch.distributed.tensor import distribute_tensor
 
     def stacked(tree):
@@ -134,13 +151,17 @@ def shard_train_state(cfg: ModelConfig, params: dict, mesh,
 
 
 def gather_train_state(params: dict, opt_state: dict) -> tuple[dict, dict]:
-    """The whole (params, per-layer opt state) of a sharded train state,
-    plain tensors on every rank: what ``checkpoint_tree`` and a comparison
-    take."""
+    """The whole (per-layer params, per-layer opt state) of a sharded train
+    state, either form, plain tensors on every rank: what
+    ``checkpoint_tree`` and a comparison take."""
     def whole(t):
         return t.full_tensor() if hasattr(t, "full_tensor") else t
 
-    plain = tree_map(whole, params)
+    if is_stacked(params):
+        plain = unflatten({name: list(whole(t).unbind(0)) if in_stack(name) else [whole(t)]
+                           for name, t in params.items()})
+    else:
+        plain = tree_map(whole, params)
     if not is_stacked_state(opt_state):
         return plain, {"m": tree_map(whole, opt_state["m"]),
                        "v": tree_map(whole, opt_state["v"]), "step": opt_state["step"]}

@@ -109,9 +109,11 @@ def test_param_and_moment_shards_equal_jax(arch, mesh):
             local_shape(shape, _entries(jmom[name]), ms), name
 
 
-def _jax_train_bytes(arch, mesh) -> int:
+def _jax_train_bytes(arch, mesh, zero3: bool = False) -> int:
     """Rank 0's argument bytes of JAX's train_4k cell by its specs: params
-    in their dtypes, f32 moments, the int32 step, the batch."""
+    in their dtypes, f32 moments, the int32 step, the batch.  ``zero3``:
+    the reference's ``zero3_params`` variant, whose parameters and moments
+    both take ``opt_state_specs(...)["m"]``."""
     import jax.numpy as jnp
 
     from repro.configs.registry import get as jget
@@ -135,7 +137,7 @@ def _jax_train_bytes(arch, mesh) -> int:
 
     total = 4  # step
     for name, leaf in shapes.items():
-        total += nbytes(leaf.shape, leaf.dtype or jcfg.dtype, specs[name])
+        total += nbytes(leaf.shape, leaf.dtype or jcfg.dtype, (mom if zero3 else specs)[name])
         total += 2 * nbytes(leaf.shape, jnp.float32, mom[name])
     shape = JSHAPES["train_4k"]
     b, s = shape.global_batch, shape.seq_len
@@ -303,9 +305,10 @@ def test_hint_is_a_no_op_without_a_context():
 # ------------------------------------------------------ four gloo ranks
 
 
-def _worker(rank: int, world: int, workdir: str, arch: str) -> None:
+def _worker(rank: int, world: int, workdir: str, arch: str, zero3: bool) -> None:
     """One rank of the parity run: the port's sharded train step on a
-    (data 2, model 2) mesh from ``init.pt``; rank 0 writes ``out.pt``."""
+    (data 2, model 2) mesh from ``init.pt`` (``zero3``: the parameters
+    stacked in their moments' layout); rank 0 writes ``out.pt``."""
     import torch.distributed as dist
 
     from repro_torch.configs.registry import reduced
@@ -324,7 +327,7 @@ def _worker(rank: int, world: int, workdir: str, arch: str) -> None:
         data = torch.load(os.path.join(workdir, "init.pt"), weights_only=False)
         cfg = dataclasses.replace(reduced(arch), vocab=4096, dtype=torch.float32)
         mesh = build_mesh(plan_remesh(world, 2, prefer_pods=False), device_type="cpu")
-        params, opt = shard_train_state(cfg, data["params"], mesh)
+        params, opt = shard_train_state(cfg, data["params"], mesh, zero3=zero3)
         step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(lr=GLOO_LR, warmup_steps=2)),
                                mesh=mesh)
         losses = []
@@ -340,6 +343,12 @@ def _worker(rank: int, world: int, workdir: str, arch: str) -> None:
 
 @pytest.mark.parametrize("arch", GLOO_ARCHS)
 def test_four_rank_train_steps_equal_jax(arch, tmp_path, monkeypatch):
+    four_ranks_against_jax(arch, tmp_path, monkeypatch)
+
+
+def four_ranks_against_jax(arch, tmp_path, monkeypatch, zero3: bool = False) -> None:
+    """Four gloo ranks' ``GLOO_STEPS`` steps of reduced ``arch`` against
+    JAX's ``make_train_step``: losses rtol 1e-5, parameters atol 1e-3."""
     import jax
     import jax.numpy as jnp
 
@@ -369,7 +378,8 @@ def test_four_rank_train_steps_equal_jax(arch, tmp_path, monkeypatch):
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     procs = [subprocess.Popen([sys.executable, __file__, "--worker", str(r), "4",
-                               str(tmp_path), arch], env=env, stdout=subprocess.PIPE,
+                               str(tmp_path), arch, str(int(zero3))], env=env,
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(4)]
     logs = []
     try:
@@ -399,4 +409,4 @@ def test_four_rank_train_steps_equal_jax(arch, tmp_path, monkeypatch):
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
-    _worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    _worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6] == "1")

@@ -5,7 +5,8 @@ mamba2, hybrid zamba2) trace the train step, prefill and decode on a fake
 (data 2, model 2) and (pod 2, data 2, model 2) process group, each cell
 ``ok``, its ``argument_bytes`` equal to the spec arithmetic of
 ``dryrun.argument_bytes``.  The cell list is JAX's 64; the fake group is
-refused beside a live one; the launcher writes its records; a kernel
+refused beside a live one; the launcher writes its records; an unknown
+variant is refused and ``no_zero1`` and ``zero3_params`` run; a kernel
 wrapper handed a CUDA tensor inside the dry-run raises.
 """
 import json
@@ -97,8 +98,6 @@ def test_launcher_writes_a_record_per_cell(tmp_path, capsys):
 
 
 def test_variants_are_refused_or_run():
-    with pytest.raises(NotImplementedError, match="zero3_params"):
-        dryrun.run_cell("gemma-2b", "train_4k", "single", variant="zero3_params")
     with pytest.raises(ValueError, match="variant"):
         dryrun.run_cell("gemma-2b", "train_4k", "single", variant="zero2")
     cfg, ms = reduced("qwen3-32b"), {"data": 2, "model": 2}
@@ -110,6 +109,13 @@ def test_variants_are_refused_or_run():
     assert no_z["memory"]["argument_bytes"] > base["memory"]["argument_bytes"]
     assert no_z["memory"]["argument_bytes"] == dryrun.argument_bytes(
         cfg, "train_4k", ms, "no_zero1", global_batch=BATCH, seq_len=SEQ)
+    # ZeRO-3 halves the parameters too
+    z3 = dryrun.run_cell("qwen3-32b", "train_4k", "x", cfg=cfg, mesh_shape=ms,
+                         global_batch=BATCH, seq_len=SEQ, variant="zero3_params")
+    assert z3["status"] == "ok"
+    assert z3["memory"]["argument_bytes"] < base["memory"]["argument_bytes"]
+    assert z3["memory"]["argument_bytes"] == dryrun.argument_bytes(
+        cfg, "train_4k", ms, "zero3_params", global_batch=BATCH, seq_len=SEQ)
 
 
 def test_a_cuda_tensor_in_the_dry_run_raises():
