@@ -251,6 +251,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
              (parsed and exact, JSON-constrained and, as a diagnostic, not),
              and the 8 SSB NL questions of phase 3 through ``CacheService``
              (protocol kept, every table against the oracle, 0 false hits).
+13a. examples — the five ``repro_torch.examples`` (the JAX package's
+             ``examples/*.py`` on the port) through their ``main``, the
+             kernel launches counted per run: quickstart,
+             dashboard_session, streaming_append (its live backend's delta
+             scans through the seg_agg kernels) and multi_pod_dryrun (8
+             partitions, each on a CUDA stream of its own) at their
+             defaults on the card, each summary equal to its ``--device
+             cpu`` run's and at least one seg_agg launch each;
+             multi_pod_dryrun and quickstart again at ``--n-fact`` rows,
+             every table against the numpy oracle over the examples' data
+             (seed 0); the flash backward at the reduced train example's
+             shape (q (8,8,128,32), k/v (8,4,128,32), bf16, causal) against
+             ``mha_bwd_ref`` (``BWD_TOL``) and timed beside its plain
+             version, SDPA's backward and its bound; train_canonicalizer at its
+             reduced default (120 steps) and, after a restart from its
+             checkpoint in a temporary directory, 20 steps more: losses
+             finite, step 119's below step 0's, each run launching
+             ``flash_attn``, ``flash_attn_bwd`` and ``decode_attn``.
+             Prints each run's summary, wall seconds and launches by kernel.
 14. dist   — the distribution (``repro_torch.distributed``) on a one-rank
              NCCL process group, mesh ``build_mesh(plan_remesh(1, 1))``
              (data 1, model 1): canonicalizer-100m trained ``DIST_STEPS``
@@ -284,7 +303,7 @@ degraded count, any result with ``error`` set, or a status other than a
 hit, a miss or a bypass: the service turns a backend exception (a kernel
 that fails to launch) into such a result, not into an exception.
 
-The lines of phases 10-14 and ``[shapes]`` end with the card's name and
+The lines of phases 10-14 (13a too) and ``[shapes]`` end with the card's name and
 power limit.  The last three lines of standard output are the ``kernels``
 JSON line, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  Exits
@@ -2469,33 +2488,6 @@ def scan_phase(wl, oracle) -> dict:
 REFRESH_ROWS = 6_000  # TPC-H's RF1 insert at SF1: 1,500 orders of about 4 lines
 
 
-def ssb_delta(ds, n: int, rng, year: int = 1998) -> dict:
-    """``n`` new LINEORDER rows drawn from ``ssb.build_dataset``'s
-    distributions (any customer, supplier and part; quantity 1-50, price
-    100-10,000, discount 0-10, supply cost 40-80 % of the price), ordered on
-    days of ``year``."""
-    import numpy as np
-
-    dim = ds.dims["dates"]
-    day_keys = np.nonzero(dim.columns["d_year"].data == year)[0]
-    od = rng.choice(day_keys, size=n)
-    qty = rng.integers(1, 51, size=n)
-    price = np.round(rng.uniform(100, 10_000, size=n), 2)
-    disc = rng.integers(0, 11, size=n)
-    return {
-        "lo_orderdate": od,
-        "lo_custkey": rng.integers(0, ds.dims["customer"].num_rows, size=n),
-        "lo_suppkey": rng.integers(0, ds.dims["supplier"].num_rows, size=n),
-        "lo_partkey": rng.integers(0, ds.dims["part"].num_rows, size=n),
-        "lo_quantity": qty,
-        "lo_extendedprice": price,
-        "lo_discount": disc,
-        "lo_revenue": np.round(price * (1 - disc / 100.0), 2),
-        "lo_supplycost": np.round(price * rng.uniform(0.4, 0.8, size=n), 2),
-        "lo_date": dim.columns["d_date"].data[od],
-    }
-
-
 def refresh_phase(n_fact: int, seed: int) -> dict:
     """Incremental refresh on the card: a tenant on an SSB dataset of its
     own serves the SSB SQL stream and the host-mask request, then
@@ -2506,6 +2498,7 @@ def refresh_phase(n_fact: int, seed: int) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.examples.data import make_delta
     from repro_torch.kernels.binding import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.service import CacheService
@@ -2519,7 +2512,7 @@ def refresh_phase(n_fact: int, seed: int) -> dict:
     served = serve.replay(svc, sqls)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    delta = ssb_delta(rwl.dataset, REFRESH_ROWS, np.random.default_rng(seed))
+    delta = make_delta(rwl.dataset, REFRESH_ROWS, np.random.default_rng(seed))
     backend = tenant.backend
     real = backend.execute_batch
     with FusedShapes() as shapes, ThreadLaunches() as threads:
@@ -2853,30 +2846,25 @@ class RecordingBatches:
 
 
 def _held_out(wl, engine) -> dict:
-    """examples/train_canonicalizer.py's held-out evaluation: the last of 40
-    paraphrases (seed 777 + i) of each of the first 8 intents, one at a
-    time (as the example asks), through a ``CanonicalizerService``
-    (JSON-constrained decoding): parseable signatures and exact intent
-    matches; and, as a diagnostic, the same prompts decoded greedily
-    without the constraint and parsed the same way."""
+    """``repro_torch.examples.train_canonicalizer.held_out`` (the example's
+    held-out evaluation: the last of 40 paraphrases, seed 777 + i, of each
+    of the first 8 intents, one at a time through a ``CanonicalizerService``,
+    JSON-constrained): parseable signatures and exact intent matches; and,
+    as a diagnostic, the same prompts decoded greedily without the
+    constraint and parsed the same way."""
+    import contextlib
+    import io
     import json as _json
 
     from repro_torch.core.signature import signature_from_json
-    from repro_torch.core.sql_canon import SQLCanonicalizer
-    from repro_torch.serving.engine import CanonicalizerService
-    from repro_torch.workloads.paraphrase import gen_paraphrases
+    from repro_torch.examples.train_canonicalizer import held_out
 
-    canon = SQLCanonicalizer(wl.schema)
-    svc = CanonicalizerService(engine, wl.schema.name)
-    counts = {"constrained": [0, 0], "unconstrained": [0, 0]}
-    first = {}
-    for i, intent in enumerate(wl.intents[:8]):
-        gold = canon.canonicalize(intent.sql).key()
-        text = gen_paraphrases(intent, n=40, seed=777 + i)[-1]
-        r = svc.canonicalize(text)
-        if (r.signature is None) != (r.error is not None):
-            raise AssertionError(f"NLResult breaks the protocol: {r}")
-        g = engine.generate([f"question: {text}\nsignature: "],
+    with contextlib.redirect_stdout(io.StringIO()):  # its lines are the example's
+        asked = held_out(wl, engine)
+    free = [0, 0]
+    first = []
+    for a in asked["answers"]:
+        g = engine.generate([f"question: {a['text']}\nsignature: "],
                             max_new_tokens=MAX_NEW_TOKENS, constrained=False)[0]
         raw = engine.tok.decode(g["tokens"])  # specials dropped
         try:
@@ -2885,12 +2873,14 @@ def _held_out(wl, engine) -> dict:
             sig = signature_from_json(obj)
         except Exception:  # noqa: BLE001 - malformed output counts as unparsed
             sig = None
-        for how, s in (("constrained", r.signature), ("unconstrained", sig)):
-            counts[how][0] += s is not None
-            counts[how][1] += s is not None and s.key() == gold
-        first = first or {"constrained": r.raw_json[:80], "unconstrained": raw[:80]}
-    return {"questions": 8, **{k: {"parsed": v[0], "exact": v[1]} for k, v in counts.items()},
-            "first_answers": first}
+        free[0] += sig is not None
+        free[1] += sig is not None and sig.key() == a["gold"]
+        first.append(raw[:80])
+    return {"questions": asked["questions"],
+            "constrained": {"parsed": asked["parsed"], "exact": asked["exact"]},
+            "unconstrained": {"parsed": free[0], "exact": free[1]},
+            "first_answers": {"constrained": asked["answers"][0]["raw_json"][:80],
+                              "unconstrained": first[0]}}
 
 
 def train_phase(wl, oracle, seed: int, dev, gen, iters: int) -> dict:
@@ -3066,6 +3056,114 @@ def train_phase(wl, oracle, seed: int, dev, gen, iters: int) -> dict:
                 "top_device_ms": _top(by_name, 8),
                 "peak_memory_allocated": peak, "peak_above_resident": peak - resident,
                 "served": served}}
+
+
+# -------------------------------------------------------------- examples
+
+
+EXAMPLE_RESTART_STEPS = 20  # train_canonicalizer's steps after its restart
+EXAMPLE_BWD = (8, 8, 4, 128, 32)  # its flash backward: q (8,8,128,32), k/v (8,4,128,32)
+
+
+def _example(module, argv, **kw) -> tuple[dict, dict, float]:
+    """``module.main(argv, **kw)``'s summary, the kernel launches counted
+    from just before it to just after, and its wall seconds; the lines it
+    prints are the example's and are not shown."""
+    import collections
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels.binding import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = module.main(argv, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return summary, collections.Counter({k: n for k, n in sorted(launch_counts().items())
+                                         if n}), wall
+
+
+def examples_phase(n_fact: int, dev, gen, iters: int) -> dict:
+    """[examples]: the five ``repro_torch.examples`` on the card.  The four
+    OLAP ones at their defaults, each summary equal to its ``--device cpu``
+    run's (which launches nothing), each launching a seg_agg kernel;
+    ``multi_pod_dryrun`` and ``quickstart`` again at ``n_fact`` rows (8
+    partitions on one card's streams), their tables against the numpy
+    oracle over the examples' own data (seed 0), the partitions' accounting
+    scaled from the default run's; the flash backward at the reduced train
+    example's shape against ``mha_bwd_ref``, then timed beside its plain
+    version and SDPA's backward (``_bwd_at``); ``train_canonicalizer`` at its
+    reduced default (120 steps) and, after a restart from its checkpoint in
+    a temporary directory, ``EXAMPLE_RESTART_STEPS`` more: every loss
+    finite, step 119's below step 0's, ``flash_attn``, ``flash_attn_bwd``
+    and ``decode_attn`` launched by each run."""
+    import math
+    import tempfile
+
+    from repro_torch.examples import (dashboard_session, multi_pod_dryrun, quickstart,
+                                      streaming_append, train_canonicalizer)
+    from repro_torch.workloads import ssb
+
+    runs, launches = {}, {}
+    for name, module in (("quickstart", quickstart), ("dashboard_session", dashboard_session),
+                         ("streaming_append", streaming_append),
+                         ("multi_pod_dryrun", multi_pod_dryrun)):
+        card, launches[name], wall = _example(module, [])
+        cpu, cpu_launches, cpu_wall = _example(module, ["--device", "cpu"])
+        if card != cpu or cpu_launches:
+            raise AssertionError(f"[examples] {name}: card {card}, CPU {cpu} "
+                                 f"(CPU launches {cpu_launches})")
+        if not launches[name]["seg_agg"] + launches[name]["seg_agg_fused"]:
+            raise AssertionError(f"[examples] {name} launched no seg_agg kernel: "
+                                 f"{launches[name]}")
+        runs[name] = {"wall_s": wall, "cpu_wall_s": cpu_wall, "summary": card}
+
+    oracle = Oracle(ssb.build(n_fact=n_fact, seed=0))  # the examples' own data
+    served: list = []
+    big, launches["multi_pod_dryrun SF1"], wall = _example(multi_pod_dryrun, [str(n_fact)],
+                                                           served=served)
+    checked = oracle.check(served)
+    base, parts = runs["multi_pod_dryrun"]["summary"], big["per_partition"]
+    if big["rows_scanned"] * base["n_fact"] != base["rows_scanned"] * n_fact \
+            or [p["executions"] for p in parts] != [p["executions"] for p in base["per_partition"]] \
+            or sum(p["end"] - p["start"] for p in parts) != n_fact \
+            or sum(p["rows_scanned"] for p in parts) != big["rows_scanned"] \
+            or (big["cold_statuses"], big["warm_statuses"]) != (["miss"], ["hit_exact"]):
+        raise AssertionError(f"[examples] multi_pod_dryrun at {n_fact} rows: {big}")
+    runs["multi_pod_dryrun SF1"] = {"wall_s": wall, "summary": {**big, **checked}}
+    served = []
+    big, launches["quickstart SF1"], wall = _example(quickstart, ["--n-fact", str(n_fact)],
+                                                     served=served)
+    checked = oracle.check(served)
+    if big["statuses"] != runs["quickstart"]["summary"]["statuses"]:
+        raise AssertionError(f"[examples] quickstart at {n_fact} rows: {big}")
+    runs["quickstart SF1"] = {"wall_s": wall, "summary": {**big, **checked}}
+
+    bwd = _bwd_at(dev, gen, *EXAMPLE_BWD, iters)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as ck:
+        first, launches["train_canonicalizer"], wall = _example(
+            train_canonicalizer, ["--ckpt-dir", ck])
+        steps = first["steps"]
+        second, launches["train_canonicalizer restart"], wall2 = _example(
+            train_canonicalizer, ["--ckpt-dir", ck, "--steps", str(steps + EXAMPLE_RESTART_STEPS)])
+    losses = {h["step"]: h["loss"] for h in first["history"] + second["history"]}
+    if not all(map(math.isfinite, losses.values())) or not losses[steps - 1] < losses[0] \
+            or second["start_step"] != steps:
+        raise AssertionError(f"[examples] train_canonicalizer: losses {losses}, the restart "
+                             f"started at step {second['start_step']}")
+    for name, run in (("train_canonicalizer", first), ("train_canonicalizer restart", second)):
+        if not all(launches[name][k] for k in ("flash_attn", "flash_attn_bwd", "decode_attn")):
+            raise AssertionError(f"[examples] {name} launched {launches[name]}")
+        runs[name] = {"wall_s": wall if run is first else wall2, "summary": {
+            "steps": run["steps"], "start_step": run["start_step"], "pairs": run["pairs"],
+            "vocab": run["vocab"], "losses": [(h["step"], round(h["loss"], 4))
+                                              for h in run["history"]],
+            "held_out": {k: run["held_out"][k] for k in ("questions", "parsed", "exact")}}}
+    return {"runs": runs, "launches": launches, "bwd": bwd}
 
 
 # --------------------------------------------------------------- dist
@@ -3725,6 +3823,19 @@ def main(argv=None) -> int:
           f"{json.dumps(trained['launches'])} in {time.perf_counter() - t0:.1f} s; "
           f"card: {card}")
     t0 = time.perf_counter()
+    shown = examples_phase(args.n_fact, dev, gen, 10 * args.iters)
+    r = shown["bwd"]
+    errs["flash_attn_bwd"] = max(errs["flash_attn_bwd"], r["max_abs_err"])
+    print(f"[examples] flash_attn_bwd {r['shape']}: device ms per call: kernel {r['ms']:.4f}, "
+          f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}; bound "
+          f"{r['bound_ms']:.5f} ({r['bound_by']}); max abs err {r['max_abs_err']:.3g}; "
+          f"card: {card}")
+    for name, run in shown["runs"].items():
+        cpu = f" (--device cpu {run['cpu_wall_s']:.3f} s)" if "cpu_wall_s" in run else ""
+        print(f"[examples] {name}: {json.dumps(run['summary'])} in {run['wall_s']:.3f} s"
+              f"{cpu}, launches {json.dumps(shown['launches'][name])}; card: {card}")
+    print(f"[examples] in {time.perf_counter() - t0:.1f} s; card: {card}")
+    t0 = time.perf_counter()
     distd = dist_phase(args.seed)
     print(f"[dist] {json.dumps(distd['summary'])} launches {json.dumps(distd['launches'])} "
           f"in {time.perf_counter() - t0:.1f} s; card: {card}")
@@ -3737,6 +3848,10 @@ def main(argv=None) -> int:
 
     # each path's counts were zeroed just before it and read just after
     for path, counts, names in (("train", trained["launches"], ("flash_attn", "flash_attn_bwd")),
+                                *((f"examples {name}", shown["launches"][name],
+                                   ("flash_attn", "flash_attn_bwd", "decode_attn"))
+                                  for name in ("train_canonicalizer",
+                                               "train_canonicalizer restart")),
                                 ("dist train", distd["launches"]["train"],
                                  ("flash_attn", "flash_attn_bwd")),
                                 ("dist serve", distd["launches"]["serve"],

@@ -86,6 +86,16 @@ _NEVER = (np.inf, -np.inf)  # pad range that matches nothing
 _UNSET = object()
 
 
+def scan_devices(device: torch.device) -> Optional[list]:
+    """The CUDA devices a partitioned scan on ``device`` pins its partitions
+    to in turn: every card where there are several; None where there is
+    one (the partitions run unpinned, each on a stream of its own) or
+    ``device`` is the CPU."""
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return None
+
+
 class _LRU:
     """Bounded memo dict: get/set bump recency, inserts past ``cap`` evict
     the least-recently-used entry through ``on_evict`` (which drops the
@@ -464,16 +474,10 @@ class OlapExecutor:
             return plan
 
     def _scan_devices(self):
-        """CUDA devices for partition pinning — populated only when several
-        exist and the fused path runs on CUDA; a single device runs the
-        partitions unpinned, each on a stream of its own."""
+        """CUDA devices for partition pinning (``scan_devices``) on the
+        fused path; None elsewhere."""
         if self._devices is _UNSET:
-            devs = None
-            if self.fused and self.device.type == "cuda" \
-                    and torch.cuda.device_count() > 1:
-                devs = [torch.device("cuda", i)
-                        for i in range(torch.cuda.device_count())]
-            self._devices = devs
+            self._devices = scan_devices(self.device) if self.fused else None
         return self._devices
 
     def _pool(self) -> ThreadPoolExecutor:

@@ -81,6 +81,9 @@ def test_every_submodule_imports_without_jax():
     assert {"repro_torch.distributed.sharding", "repro_torch.distributed.elastic",
             "repro_torch.distributed.local", "repro_torch.launch.mesh",
             "repro_torch.launch.dryrun", "repro_torch.configs.shapes"} <= names
+    assert {f"repro_torch.examples.{m}" for m in (
+        "data", "quickstart", "dashboard_session", "streaming_append", "multi_pod_dryrun",
+        "train_canonicalizer")} <= names
 
 
 def test_default_device_raises_without_cuda(ssb_small, monkeypatch):
