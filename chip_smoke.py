@@ -1967,6 +1967,7 @@ def serve_phase(wl, oracle) -> dict:
     from repro_torch.kernels.binding import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.service import CacheService
+    from repro_torch.service.pipeline import STAGES
 
     svc = CacheService()
     tenant = serve.build_tenant(svc, wl, device="cuda", shards=1)
@@ -2013,10 +2014,11 @@ def serve_phase(wl, oracle) -> dict:
         raise AssertionError(f"statuses {statuses}")
     if not (launches["seg_agg"] and launches["seg_agg_fused"]):
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
-    per_req = np.array([sum(r.timings_ms.values()) for r in results])
     stages = {}
-    for stage in ("canonicalize", "validate", "lookup", "plan", "execute", "store"):
+    for stage in STAGES:
         ms = np.array([r.timings_ms[stage] for r in results if stage in r.timings_ms])
+        if not ms.size:
+            continue
         stages[stage] = {"n": int(ms.size), "p50_ms": float(np.percentile(ms, 50)),
                          "p95_ms": float(np.percentile(ms, 95)),
                          "sum_ms": float(ms.sum())}
@@ -2034,10 +2036,6 @@ def serve_phase(wl, oracle) -> dict:
             "backend_executions": tenant.backend.executions,
             "batch_groups": tenant.backend.batch_groups,
             "rows_scanned": tenant.backend.rows_scanned,
-            "request_ms_p50": float(np.percentile(per_req, 50)),
-            "request_ms_p95": float(np.percentile(per_req, 95)),
-            "miss_request_ms_p50": float(np.percentile(
-                [sum(r.timings_ms.values()) for r in results if r.status == "miss"], 50)),
             "miss_execute_ms_p50": float(np.percentile(scans, 50)),
             "miss_execute_ms_p95": float(np.percentile(scans, 95)),
             "stages": stages,
@@ -2234,7 +2232,6 @@ def service_phase(wl, oracle) -> dict:
     if len(threads.shard_threads(cross)) < 2 or len(cross_kernels) < 2:
         raise AssertionError(f"cross-family batch: {dict(threads.calls[cross])}")
 
-    per_req = np.array([sum(r.timings_ms.values()) for r in results])
     scans = [r.timings_ms["execute"] for r in results if r.status == "miss" and not r.deduped]
     s = tenant.cache.stats
     return {"launches": launches, "summary": {
@@ -2246,8 +2243,6 @@ def service_phase(wl, oracle) -> dict:
                                          for i in parallel},
         "cross_family_launches": {f"{th} {k}": n for (th, k), n in
                                   sorted(threads.calls[cross].items())},
-        "request_ms_p50": float(np.percentile(per_req, 50)),
-        "request_ms_p95": float(np.percentile(per_req, 95)),
         "miss_execute_ms_p50": float(np.percentile(scans, 50)),
         "miss_execute_ms_p95": float(np.percentile(scans, 95)),
         "fault": {"spec": spec, "fired": fired, "retries": tenant.stats.retries - retries0,
@@ -2438,7 +2433,6 @@ def scan_phase(wl, oracle) -> dict:
     if not parallel:
         raise AssertionError("no shared scan launched on two streams from two scan-part threads")
     rows = sorted({r for calls in threads.detail.values() for *_, r in calls})
-    per_req = [sum(r.timings_ms.values()) for r in results]
     misses = [r.timings_ms["execute"] for r in results if r.status == "miss" and not r.deduped]
 
     sigs = [SQLCanonicalizer(wl.schema).canonicalize(DASHBOARD.format(y=y))
@@ -2475,8 +2469,6 @@ def scan_phase(wl, oracle) -> dict:
                         "device_busy_share": busy_ms / profiled_ms, **overlap},
         "fault": {"spec": spec, "fired": fired, "statuses": _statuses(faulted),
                   "kernel_b_launches": after["seg_agg_fused"] - before["seg_agg_fused"]},
-        "request_ms_p50": float(np.percentile(per_req, 50)),
-        "request_ms_p95": float(np.percentile(per_req, 95)),
         "miss_execute_ms_p50": float(np.percentile(misses, 50)),
         "miss_execute_ms_p95": float(np.percentile(misses, 95)),
         "wall_s": wall}}
@@ -2610,14 +2602,11 @@ def workloads_phase(ssb_wl, ssb_oracle, seed: int) -> dict:
             if not got["seg_agg_fused"]:
                 raise AssertionError(f"[workloads] {name}: no kernel B launch: {got}")
             launches.update(got)
-            per_req = [sum(r.timings_ms.values()) for r in results]
             out[name] = {"n_fact": w.dataset.fact.num_rows, "requests": len(results),
                          "statuses": _statuses(results), "hit_rate": tenant.cache.stats.hit_rate,
                          **oracles[name].check(results), "launches": got,
                          "backend_executions": tenant.backend.executions,
-                         "rows_scanned": tenant.backend.rows_scanned,
-                         "request_ms_p50": float(np.percentile(per_req, 50)),
-                         "request_ms_p95": float(np.percentile(per_req, 95)), "wall_s": wall}
+                         "rows_scanned": tenant.backend.rows_scanned, "wall_s": wall}
         for set_name, qs in (("adversarial", adversarial.build()),
                              ("birdlike", birdlike.build(BIRDLIKE))):
             svc = CacheService()

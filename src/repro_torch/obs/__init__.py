@@ -71,18 +71,6 @@ class ObsConfig:
     audit_capacity: int = DEFAULT_AUDIT_CAPACITY
     audit_sink: Optional[str] = None
 
-    @classmethod
-    def disabled(cls) -> "ObsConfig":
-        """Everything off — the bench's control arm."""
-        return cls(metrics=False)
-
-    @classmethod
-    def full(cls, sample_rate: float = DEFAULT_SAMPLE_RATE,
-             **kw) -> "ObsConfig":
-        """Metrics + tracing + audit, at the given sample rate."""
-        return cls(metrics=True, tracing=True, audit=True,
-                   sample_rate=sample_rate, **kw)
-
 
 class ObsPlane:
     """The service-level holder: one tracer + one registry + one audit log
@@ -112,12 +100,6 @@ class ObsPlane:
         self.tracer.close()
         if self.audit is not None:
             self.audit.close()
-
-
-# A single always-disabled plane shared by tenants whose service predates
-# observability configuration (or standalone pipeline tests): every check
-# against it short-circuits.
-DISABLED_PLANE = ObsPlane(ObsConfig.disabled())
 
 
 # ------------------------------------------------------ completeness check

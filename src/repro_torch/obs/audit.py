@@ -18,9 +18,8 @@ The emitter is deliberately dumb and cheap: a dict append into a bounded
 ring, plus an optional JSONL sink.  The cache holds ``audit=None`` by
 default, so the disabled hot path pays a single attribute load per call
 site.  With no sink attached (the default), the append path is lock-free:
-a ``deque.append`` and a ``deque`` snapshot via ``list()`` are both single
-C-level operations that never run Python code mid-step, so they are atomic
-under the GIL, and the event counter is an ``itertools.count`` (``next()``
+a ``deque.append`` is a single C-level operation that never runs Python
+code mid-step, so it is atomic under the GIL, and the event counter is an ``itertools.count`` (``next()``
 is likewise GIL-atomic).  ``hit`` events ride the warm-lookup path, where a
 lock round-trip per request is a measurable share of total latency.
 
@@ -32,7 +31,6 @@ from __future__ import annotations
 
 import itertools
 import json
-import time
 from collections import deque
 from typing import Optional
 
@@ -62,11 +60,6 @@ class AuditLog:
             if sink_path else None  # guarded-by: self._lock
         self.sink_path = sink_path
 
-    def emit(self, event: str, key: str, **fields) -> None:
-        rec = {"ts": time.time(), "event": event, "key": key}
-        rec.update(fields)
-        self.append(rec)
-
     def append(self, rec: dict) -> None:
         """Record one pre-built event dict (must carry ``ts``/``event``/
         ``key``).  The hot ``hit`` path builds its record in place and calls
@@ -78,34 +71,11 @@ class AuditLog:
             with self._lock:
                 self._sink.write(json.dumps(rec, default=str) + "\n")
 
-    # ------------------------------------------------------------- reads
-    def events(self, key: Optional[str] = None,
-               event: Optional[str] = None) -> list[dict]:
-        """Snapshot (oldest first), optionally filtered by key and/or
-        event kind."""
-        out = list(self._ring)  # atomic under the GIL (see __init__)
-        if key is not None:
-            out = [e for e in out if e["key"] == key]
-        if event is not None:
-            out = [e for e in out if e["event"] == event]
-        return out
-
-    def counts(self) -> dict:
-        out: dict[str, int] = {}
-        for e in self.events():
-            out[e["event"]] = out.get(e["event"], 0) + 1
-        return out
-
     def stats(self) -> dict:
         # peek the count without consuming (it pickles as count(current))
         emitted = self._emitted.__reduce__()[1][0]
         return {"emitted": emitted, "ring_len": len(self._ring),
                 "sink": self.sink_path}
-
-    def flush(self) -> None:
-        with self._lock:
-            if self._sink is not None:
-                self._sink.flush()
 
     def close(self) -> None:
         with self._lock:

@@ -145,21 +145,9 @@ class _Instrument:
             items = list(self._values.items())
         return [(dict(zip(self.labelnames, lv)), v) for lv, v in items]
 
-    def value(self, **labels) -> object:
-        lv = _check_labels(self.labelnames, labels)
-        with self._lock:
-            return self._values.get(lv)
-
 
 class Counter(_Instrument):
     kind = "counter"
-
-    def inc(self, amount: float = 1.0, **labels) -> None:
-        if amount < 0:
-            raise ValueError("counters only go up; use a Gauge")
-        lv = _check_labels(self.labelnames, labels)
-        with self._lock:
-            self._values[lv] = self._values.get(lv, 0.0) + amount
 
     def set_total(self, value: float, **labels) -> None:
         """Overwrite the running total — the mirroring path, where the
@@ -177,22 +165,9 @@ class Gauge(_Instrument):
         with self._lock:
             self._values[lv] = float(value)
 
-    def inc(self, amount: float = 1.0, **labels) -> None:
-        lv = _check_labels(self.labelnames, labels)
-        with self._lock:
-            self._values[lv] = self._values.get(lv, 0.0) + amount
-
 
 class Histogram(_Instrument):
     kind = "histogram"
-
-    def observe(self, value: float, **labels) -> None:
-        lv = _check_labels(self.labelnames, labels)
-        with self._lock:
-            h = self._values.get(lv)
-            if h is None:
-                h = self._values[lv] = LogHistogram()
-            h.observe(value)
 
     def merge_snapshot(self, hist: LogHistogram, **labels) -> None:
         """Adopt an externally-maintained histogram wholesale (mirroring

@@ -1,9 +1,9 @@
 """Request tracing: per-request traces of nested spans.
 
-A :class:`Tracer` makes the head-based sampling decision once per request
-(``start_trace`` returns a :class:`Trace` handle, or ``None`` when the
-request is unsampled / tracing is disabled — the whole request then pays a
-single ``is None`` check per stage).  Sampled requests carry the handle on
+A :class:`Tracer` paces the head-based sampling decision, made once per
+request by the pipeline (a sampled request carries a :class:`Trace`
+handle from ``make_trace``, an unsampled one ``None`` — the whole request
+then pays a single ``is None`` check per stage).  Sampled requests carry the handle on
 their pipeline state; every span of the request records through it into one
 process-wide bounded ring buffer (plus an optional JSONL sink), so traces
 survive the request and late spans — the storage spill worker finishing a
@@ -14,8 +14,8 @@ Two recording styles, matching how the pipeline is instrumented:
 
 * ``trace.record(name, ...)`` — after-the-fact span from a measured
   duration (the per-stage spans are emitted at finalize time from the same
-  ``perf_counter`` timings the pipeline already keeps, so tracing adds no
-  second clock read per stage);
+  ``perf_counter`` timings and first starts the pipeline already keeps, so
+  tracing adds no second clock read per stage);
 * ``span_ctx(trace, name, ...)`` — a *live* span context manager that also
   publishes itself as the calling thread's current span context, which is
   how cross-thread propagation works: the scan plane's partition pool, the
@@ -29,9 +29,20 @@ opens a live span under whatever context is installed (a no-op when none
 is — disabled tracing costs one thread-local read at each fan-out point,
 nothing on the warm-hit path).
 
-Locking: ``Tracer._lock`` is a leaf — emission happens under shard locks
-and inside pool threads, and nothing else is ever acquired while holding
-it.
+Per-call phases, for every request and not only sampled ones: a
+:class:`Phases` collector installed with ``adopt_phases`` around one
+backend call gathers the ``phase(name)`` intervals that the executor
+opens inside it (``execute.prepare``, ``execute.fetch``,
+``execute.assemble``), from its own thread and from the partition workers
+that adopt the captured collector.  With no collector installed a ``phase`` costs one
+thread-local read.  Phases time with ``perf_counter``; span starts are on
+``time.time`` (the Unix epoch, the clock ``torch.profiler`` stamps its
+events with), so a request's spans line up with a profiler trace taken
+beside it without any profiler range in the program.
+
+Locking: ``Tracer._lock`` and ``Phases._lock`` are leaves — emission
+happens under shard locks and inside pool threads, and nothing else is
+ever acquired while holding either.
 """
 from __future__ import annotations
 
@@ -46,8 +57,9 @@ from typing import Optional
 from ..analysis.sanitizer import make_lock
 
 __all__ = [
-    "DEFAULT_SAMPLE_RATE", "Trace", "Tracer", "adopt", "child_span",
-    "current_ctx", "span_ctx",
+    "DEFAULT_SAMPLE_RATE", "Phases", "Trace", "Tracer", "adopt",
+    "adopt_phases", "child_span", "current_ctx",
+    "current_phases", "phase", "span_ctx",
 ]
 
 DEFAULT_SAMPLE_RATE = 0.01  # head-based: 1 in 100 requests fully traced
@@ -138,24 +150,6 @@ class Tracer:
         self.sink_path = sink_path
 
     # ---------------------------------------------------------- sampling
-    def start_trace(self) -> Optional[Trace]:
-        """Head-based sampling: the keep/drop decision is made once, here,
-        before any span exists.  Returns ``None`` for unsampled requests.
-        Deterministic pacing, no RNG: exactly one request per ``period``
-        is sampled.
-
-        The batch pipeline inlines this exact countdown (see
-        ``run_pipeline``) and only calls :meth:`make_trace` on the sampled
-        path; this method is the one-stop form for everything off the warm
-        path."""
-        if not self.enabled or not self.period:
-            return None
-        c = self.countdown = self.countdown - 1
-        if c > 0:
-            return None
-        self.countdown = c + self.period
-        return self.make_trace()
-
     def make_trace(self) -> Trace:
         """Allocate a sampled trace handle (the keep decision was already
         made by the caller)."""
@@ -182,12 +176,6 @@ class Tracer:
             out = [s for s in out if s["trace"] == trace_id]
         return out
 
-    def trace_ids(self) -> list[str]:
-        seen: dict[str, None] = {}
-        for s in self.spans():
-            seen.setdefault(s["trace"])
-        return list(seen)
-
     def stats(self) -> dict:
         with self._lock:
             return {
@@ -201,11 +189,6 @@ class Tracer:
                 "ring_len": len(self._ring),
                 "sink": self.sink_path,
             }
-
-    def flush(self) -> None:
-        with self._lock:
-            if self._sink is not None:
-                self._sink.flush()
 
     def close(self) -> None:
         with self._lock:
@@ -271,3 +254,99 @@ def child_span(name: str, attrs: Optional[dict] = None):
         return
     with span_ctx(ctx[0], name, parent_id=ctx[1], attrs=attrs) as sid:
         yield sid
+
+
+# ------------------------------------------------------- per-call phases
+
+
+class Phases:
+    """The phases of one backend call: each ``phase`` interval, and counts
+    the executor tallies (``signatures``, ``groups``, ``bytes``).
+
+    Partition workers add from their own threads under ``_lock``.  Where
+    phases of several threads overlap, ``sums`` shares each overlapping
+    instant equally among the phases in progress, so the sums never
+    exceed the call's wall time; on one thread they are plain sums."""
+
+    __slots__ = ("_lock", "_intervals", "counts")
+
+    def __init__(self):
+        self._lock = make_lock("Phases._lock")
+        self._intervals: list = []  # (name, t0, t1)  # guarded-by: self._lock
+        self.counts: dict = {}  # guarded-by: self._lock
+
+    def add(self, name: str, t0: float, t1: float) -> None:
+        with self._lock:
+            self._intervals.append((name, t0, t1))
+
+    def tally(self, **counts: int) -> None:
+        with self._lock:
+            for k, v in counts.items():
+                self.counts[k] = self.counts.get(k, 0) + v
+
+    def sums(self) -> dict:
+        """``{name: (ms, first start)}``, the start in ``perf_counter``
+        seconds, in the order the phases first started."""
+        with self._lock:
+            iv = sorted(self._intervals, key=lambda x: x[1])
+        firsts: dict = {}
+        for name, t0, _ in iv:
+            firsts.setdefault(name, t0)
+        ms = dict.fromkeys(firsts, 0.0)
+        edges = sorted([(t0, 1, n) for n, t0, _ in iv]
+                       + [(t1, -1, n) for n, _, t1 in iv],
+                       key=lambda e: (e[0], e[1]))
+        live: dict = {}
+        prev = None
+        for t, step, name in edges:
+            if live:
+                share = (t - prev) * 1e3 / sum(live.values())
+                for n, k in live.items():
+                    ms[n] += share * k
+            live[name] = live.get(name, 0) + step
+            if not live[name]:
+                del live[name]
+            prev = t
+        return {n: (ms[n], firsts[n]) for n in firsts}
+
+
+def current_phases() -> Optional[Phases]:
+    """The calling thread's collector, or ``None`` — captured where a call
+    fans out to pool workers."""
+    return getattr(_tls, "phases", None)
+
+
+@contextmanager
+def adopt_phases(phases: Optional[Phases]):
+    """Install ``phases`` as this thread's collector for the body (a new
+    one around a backend call, or a partition worker adopting its
+    submitter's); yields it.  ``adopt_phases(None)`` leaves the body
+    without one."""
+    prev = getattr(_tls, "phases", None)
+    _tls.phases = phases
+    try:
+        yield phases
+    finally:
+        _tls.phases = prev
+
+
+class phase:
+    """``with phase(name) as col:`` adds the body's interval to the
+    thread's collector and yields it (``None``, and no clock read, when
+    none is installed)."""
+
+    __slots__ = ("name", "col", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> Optional[Phases]:
+        col = self.col = getattr(_tls, "phases", None)
+        if col is not None:
+            self.t0 = time.perf_counter()
+        return col
+
+    def __exit__(self, *exc) -> bool:
+        if self.col is not None:
+            self.col.add(self.name, self.t0, time.perf_counter())
+        return False

@@ -46,6 +46,14 @@ fact table.
   the unpartitioned oracle the merged tables are differential-tested
   against.
 
+* **Phases** — the fused paths time three phases into the caller's
+  ``obs.trace`` collector (none installed: one thread-local read each):
+  ``execute.prepare`` (level plans, group ids, bounds, uploads and the
+  kernels' enqueue), ``execute.fetch`` (every ``_host``: the wait for the
+  kernel, the copy to the host and the widening to float64) and
+  ``execute.assemble`` (``_finalize`` to the result, and the partitioned
+  scan's merge).  ``_execute_host`` is not timed.
+
 Streams and tensors: ``DeviceDataset.cache`` stores a tensor only after
 the stream that produced it has finished, so a tensor found in a mirror's
 store is complete for every stream; a streaming chunk's tensors are
@@ -72,7 +80,8 @@ from ..core.sqlparse import SQLSyntaxError, UnsupportedQuery
 from ..core.table import ResultTable, eval_predicate
 from ..kernels.seg_agg.ops import (seg_agg, seg_agg_batch_blocks,
                                    seg_agg_fused, seg_agg_masked)
-from ..obs.trace import adopt, child_span, current_ctx
+from ..obs.trace import (adopt, adopt_phases, child_span, current_ctx,
+                         current_phases, phase)
 from ..resilience import faults
 from . import scan_plane
 from .columnar import Dataset, date_to_days, resolve_device
@@ -176,8 +185,12 @@ class _MeasurePlan:
 
 
 def _host(t) -> np.ndarray:
-    """Device result -> float64 numpy (the host tail works in float64)."""
-    return t.cpu().numpy().astype(np.float64)
+    """Device result -> float64 numpy (the host tail works in float64), in
+    the ``execute.fetch`` phase."""
+    with phase("execute.fetch") as col:
+        if col is not None:
+            col.tally(bytes=t.numel() * t.element_size())
+        return t.cpu().numpy().astype(np.float64)
 
 
 class OlapExecutor:
@@ -414,22 +427,26 @@ class OlapExecutor:
                 continue
             self._count(batch_groups=1, executions=len(idxs),
                         rows_scanned=self.ds.fact.num_rows)  # one shared scan
-            levels = [self._level_plan(lv) for lv in lvls]
-            gids_np, n_groups, sparse_uniq = self._group_ids(levels)
-            gids_dev = self._device_gids(lvls, gids_np)
-            plan = self._measure_plan(measures)
-            group_sigs = [sigs[i] for i in idxs]
-            pred_block, bounds = self._batch_predicates(group_sigs)
-            sums_dev, mms_dev = seg_agg_batch_blocks(
-                plan.sum_block, plan.minmax_block, gids_dev, pred_block,
-                self._put(bounds), n_groups)
+            with phase("execute.prepare") as col:
+                levels = [self._level_plan(lv) for lv in lvls]
+                gids_np, n_groups, sparse_uniq = self._group_ids(levels)
+                if col is not None:
+                    col.tally(signatures=len(idxs), groups=n_groups)
+                gids_dev = self._device_gids(lvls, gids_np)
+                plan = self._measure_plan(measures)
+                group_sigs = [sigs[i] for i in idxs]
+                pred_block, bounds = self._batch_predicates(group_sigs)
+                sums_dev, mms_dev = seg_agg_batch_blocks(
+                    plan.sum_block, plan.minmax_block, gids_dev, pred_block,
+                    self._put(bounds), n_groups)
             sums = _host(sums_dev)  # (S, G, 1+Ms)
             mms = None if mms_dev is None else _host(mms_dev)
-            for s_i, i in enumerate(idxs):
-                out[i] = self._finalize(
-                    sigs[i], levels, plan, sums[s_i],
-                    None if mms is None else mms[s_i],
-                    gids_np, n_groups, sparse_uniq)
+            with phase("execute.assemble"):
+                for s_i, i in enumerate(idxs):
+                    out[i] = self._finalize(
+                        sigs[i], levels, plan, sums[s_i],
+                        None if mms is None else mms[s_i],
+                        gids_np, n_groups, sparse_uniq)
         return out  # type: ignore[return-value]
 
     def _partition_executor(self, start: int, end: int) -> "OlapExecutor":
@@ -534,33 +551,39 @@ class OlapExecutor:
         SUM/COUNT, and apply post-aggregation on the merged result.  Every
         partition job is waited for before an error is raised, so no scan of
         a failed batch is still running when the caller retries it."""
-        plan = self._scan_plan()
-        pplans = [scan_plane.decompose(s) for s in sigs]
-        psigs = [p.partial_sig for p in pplans]
+        with phase("execute.prepare"):
+            plan = self._scan_plan()
+            pplans = [scan_plane.decompose(s) for s in sigs]
+            psigs = [p.partial_sig for p in pplans]
         with self._count_lock:
             self.partitioned_scans += 1
         devices = self._scan_devices()
-        # capture the submitting thread's trace context so each partition
-        # worker's span hangs off the request's execute span (obs plane);
-        # None when the request is unsampled — adopt() is then a no-op
+        # capture the submitting thread's trace context and phase collector
+        # so each partition worker's span hangs off the request's execute
+        # span (obs plane) and its phases add to the call's; None when the
+        # request is unsampled or no collector is installed — adopt() and
+        # adopt_phases() are then no-ops
         obs_ctx = current_ctx()
+        phases = current_phases()
         jobs = [
             self._pool().submit(
                 self._scan_partition, p, chunks, psigs,
-                devices[p % len(devices)] if devices else None, obs_ctx)
+                devices[p % len(devices)] if devices else None, obs_ctx,
+                phases)
             for p, chunks in enumerate(plan.chunks)]
         wait(jobs)
         partials = [j.result() for j in jobs]  # [partition][sig] tables
         out = []
-        for i, (sig, pplan) in enumerate(zip(sigs, pplans)):
-            merged = merge_partials(
-                pplan.partial_sig, [part[i] for part in partials])
-            out.append(self._post_aggregate(
-                sig, scan_plane.finalize_partials(sig, pplan, merged)))
+        with phase("execute.assemble"):
+            for i, (sig, pplan) in enumerate(zip(sigs, pplans)):
+                merged = merge_partials(
+                    pplan.partial_sig, [part[i] for part in partials])
+                out.append(self._post_aggregate(
+                    sig, scan_plane.finalize_partials(sig, pplan, merged)))
         return out
 
     def _scan_partition(self, p: int, chunks, psigs, dev,
-                        obs_ctx=None) -> list[ResultTable]:
+                        obs_ctx=None, phases=None) -> list[ResultTable]:
         """One partition job: scan its chunks in order, pre-merging the
         per-chunk partial tables (merge is associative and fold-order
         independent, so two-level partition-then-global merging is exact).
@@ -568,7 +591,7 @@ class OlapExecutor:
         CUDA devices (None: this executor's device).  On a CUDA device the
         job runs under the partition's own stream; on the CPU the plain
         versions run in the pool thread."""
-        with adopt(obs_ctx), child_span(
+        with adopt(obs_ctx), adopt_phases(phases), child_span(
                 "execute.partition",
                 attrs={"partition": p, "chunks": len(chunks),
                        "sigs": len(psigs)}):
@@ -730,33 +753,38 @@ class OlapExecutor:
 
     # ------------------------------------------------------- fused (device)
     def _execute_fused(self, sig: Signature) -> ResultTable:
-        levels = [self._level_plan(lv) for lv in sig.levels]
-        gids_np, n_groups, sparse_uniq = self._group_ids(levels)
-        gids_dev = self._device_gids(sig.levels, gids_np)
-        plan = self._measure_plan(sig.measures)
-        enc = self._predicate_plan(sig)
-        if enc is None:
-            # some predicate can't be evaluated exactly in f32: build the
-            # mask on host (exact, oracle-identical) and keep the fused
-            # single-launch device aggregation
-            mask = self._put(self._filter_mask(sig), torch.float32)
-            sums = _host(seg_agg_masked(plan.sum_block, gids_dev, mask,
-                                        n_groups, "sum"))
-            mm = None
-            if plan.minmax_block is not None:
-                mm = _host(seg_agg_masked(plan.minmax_block, gids_dev, mask,
-                                          n_groups, "min"))
-        else:
-            pred_block, bounds = enc
-            bounds = self._put(bounds)
-            sums = _host(seg_agg_fused(plan.sum_block, gids_dev, pred_block,
-                                       bounds, n_groups, "sum"))
-            mm = None
-            if plan.minmax_block is not None:
-                mm = _host(seg_agg_fused(plan.minmax_block, gids_dev,
-                                         pred_block, bounds, n_groups, "min"))
-        return self._finalize(sig, levels, plan, sums, mm, gids_np, n_groups,
-                              sparse_uniq)
+        with phase("execute.prepare") as col:
+            levels = [self._level_plan(lv) for lv in sig.levels]
+            gids_np, n_groups, sparse_uniq = self._group_ids(levels)
+            if col is not None:
+                col.tally(signatures=1, groups=n_groups)
+            gids_dev = self._device_gids(sig.levels, gids_np)
+            plan = self._measure_plan(sig.measures)
+            enc = self._predicate_plan(sig)
+            mm_dev = None
+            if enc is None:
+                # some predicate can't be evaluated exactly in f32: build the
+                # mask on host (exact, oracle-identical) and keep the fused
+                # single-launch device aggregation
+                mask = self._put(self._filter_mask(sig), torch.float32)
+                sums_dev = seg_agg_masked(plan.sum_block, gids_dev, mask,
+                                          n_groups, "sum")
+                if plan.minmax_block is not None:
+                    mm_dev = seg_agg_masked(plan.minmax_block, gids_dev, mask,
+                                            n_groups, "min")
+            else:
+                pred_block, bounds = enc
+                bounds = self._put(bounds)
+                sums_dev = seg_agg_fused(plan.sum_block, gids_dev, pred_block,
+                                         bounds, n_groups, "sum")
+                if plan.minmax_block is not None:
+                    mm_dev = seg_agg_fused(plan.minmax_block, gids_dev,
+                                           pred_block, bounds, n_groups, "min")
+        sums = _host(sums_dev)
+        mm = None if mm_dev is None else _host(mm_dev)
+        with phase("execute.assemble"):
+            return self._finalize(sig, levels, plan, sums, mm, gids_np,
+                                  n_groups, sparse_uniq)
 
     def _finalize(self, sig, levels, plan, sums, mm, gids_np, n_groups,
                   sparse_uniq) -> ResultTable:

@@ -17,6 +17,7 @@ import threading
 from typing import Any, Optional, Protocol, Sequence
 
 from ..analysis.sanitizer import make_lock, note_acquire, note_release
+from ..obs import PIPELINE_STAGES
 from ..obs.metrics import LogHistogram
 from ..core.middleware import Backend
 from ..core.signature import Filter, OrderKey, Signature, TimeWindow
@@ -116,7 +117,11 @@ class QueryResult:
     :class:`FailureInfo` in ``error``, never a raw exception).  ``provenance``
     is the ordered chain of pipeline-stage outcomes the request passed
     through (e.g. ``('canonicalize:sql', 'validate:ok', 'lookup:miss',
-    'execute:batched', 'store')``); ``timings_ms`` holds per-stage wall time.
+    'execute:batched', 'store')``); ``timings_ms`` holds per-stage wall time,
+    and a key with a dot is a child of the stage before the dot (the
+    executor's ``execute.prepare``, ``execute.fetch`` and
+    ``execute.assemble``, each a shared scan's sum given to every request
+    of it, as ``execute`` is).
     ``batched`` marks misses served by a shared ``execute_batch`` scan;
     ``deduped`` marks requests whose identical in-flight signature was
     executed once for several requesters.
@@ -347,8 +352,12 @@ class TenantStats:
                 setattr(self, name, getattr(self, name) + delta)
 
     def record_stage_timings(self, timings_ms: dict[str, float]) -> None:
+        """Observe the pipeline stages' timings; a stage's children (the
+        executor's ``execute.<phase>`` keys) are not stages."""
         with self._lock:
             for stage, ms in timings_ms.items():
+                if stage not in PIPELINE_STAGES:
+                    continue
                 h = self.stage_timings.get(stage)
                 if h is None:
                     h = self.stage_timings[stage] = LogHistogram()

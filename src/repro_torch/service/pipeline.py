@@ -61,7 +61,7 @@ from ..core.safety import gate_nl, verify_hit_time_window
 from ..core.signature import Signature
 from ..core.sql_canon import CanonicalizationError
 from ..core.sqlparse import SQLSyntaxError, UnsupportedQuery
-from ..obs.trace import Trace, adopt, span_ctx
+from ..obs.trace import Phases, Trace, adopt, adopt_phases, span_ctx
 from ..resilience import faults
 from ..resilience.errors import FailureInfo, classify
 from ..resilience.primitives import Deadline, backoff_delays
@@ -105,21 +105,32 @@ class RequestState:
     provenance: list = dataclasses.field(default_factory=list)
     timings: dict = dataclasses.field(default_factory=dict)
     # observability: set when this request was head-sampled.  Stage spans
-    # are emitted at finalize time from ``timings``/``provenance`` (no
-    # second clock read per stage); ``stage_attrs`` collects extra span
-    # attributes stages want on their finalize-time span (adoption links,
-    # resilience outcomes)
+    # are emitted at finalize time from ``timings``, ``starts`` and
+    # ``provenance`` (no second clock read per stage); ``stage_attrs``
+    # collects extra span attributes stages want on their finalize-time
+    # span (adoption links, resilience outcomes)
     trace: Optional[Trace] = None
-    trace_wall0: float = 0.0  # wall clock at trace start (span start_s base)
-    trace_t0: float = 0.0  # perf_counter at trace start (root span duration)
+    trace_wall0_ns: int = 0  # time.time_ns() at trace start: the spans' anchor
+    trace_t0: float = 0.0  # perf_counter at trace start
+    starts: dict = dataclasses.field(default_factory=dict)  # stage -> first perf_counter start
     stage_attrs: dict = dataclasses.field(default_factory=dict)
 
     @property
     def pending(self) -> bool:
         return self.status is None
 
-    def add_ms(self, stage: str, ms: float) -> None:
+    def add_ms(self, stage: str, ms: float, t0: Optional[float] = None) -> None:
+        """Add ``ms`` to ``stage``; a sampled request also keeps the stage's
+        first start ``t0`` (``perf_counter`` seconds)."""
         self.timings[stage] = self.timings.get(stage, 0.0) + ms
+        if self.trace is not None and t0 is not None:
+            self.starts.setdefault(stage, t0)
+
+    def wall_s(self, t: float) -> float:
+        """``perf_counter`` reading ``t`` of a sampled request on the Unix
+        epoch (``time.time``, the profiler's clock): the trace's anchor plus
+        the offset, so that the two clocks cannot drift apart within it."""
+        return (self.trace_wall0_ns + round((t - self.trace_t0) * 1e9)) / 1e9
 
     def bypass(self, reason: str, exec_mode: Optional[str] = None) -> None:
         self.status = "bypass"
@@ -145,14 +156,14 @@ def run_pipeline(tenant: "Tenant", requests: list[QueryRequest]) -> list[QueryRe
         c = tracer.countdown = tracer.countdown - len(states)
         if c <= 0:
             # one sample per period boundary crossed, taken from the front
-            # of the batch (deterministic pacing, Tracer.start_trace
-            # semantics); the countdown carries the remainder forward
+            # of the batch (deterministic pacing, one trace per period);
+            # the countdown carries the remainder forward
             period = tracer.period
             due = min(len(states), (-c) // period + 1)
             tracer.countdown = c + due * period
             for s in states[:due]:
                 s.trace = tracer.make_trace()
-                s.trace_wall0 = time.time()
+                s.trace_wall0_ns = time.time_ns()
                 s.trace_t0 = time.perf_counter()
     tenant.stats.bump(requests=len(states), batches=1)
     try:
@@ -264,12 +275,12 @@ def _stage_canonicalize(tenant: "Tenant", states: list[RequestState]) -> None:
                 if s.req.scope is not None:
                     s.sig = s.sig.replace(scope=s.req.scope)
         except (UnsupportedQuery, SQLSyntaxError, CanonicalizationError, KeyError) as e:
-            s.add_ms("canonicalize", (time.perf_counter() - t0) * 1e3)
+            s.add_ms("canonicalize", (time.perf_counter() - t0) * 1e3, t0)
             # raw-SQL bypasses still run on the backend; metric/signature
             # failures have nothing safe to execute
             s.bypass(str(e), "raw" if s.origin == "sql" else None)
             continue
-        s.add_ms("canonicalize", (time.perf_counter() - t0) * 1e3)
+        s.add_ms("canonicalize", (time.perf_counter() - t0) * 1e3, t0)
         s.provenance.append(f"canonicalize:{s.origin}")
 
 
@@ -322,7 +333,7 @@ def _canonicalize_nl(tenant: "Tenant", states: list[RequestState]) -> None:
             if pol.enabled:
                 breaker.record_failure()
             for s in group:
-                s.add_ms("canonicalize", ms)
+                s.add_ms("canonicalize", ms, t0)
                 _conclude_failure(
                     tenant, s, "canonicalize", classify(e),
                     f"{type(e).__name__}: {e}",
@@ -341,7 +352,7 @@ def _canonicalize_nl(tenant: "Tenant", states: list[RequestState]) -> None:
                     error="injected fault: canonicalizer returned garbage")
             elif faults.should_fire("canonicalize.lowconf"):
                 res = dataclasses.replace(res, confidence=0.01)
-            s.add_ms("canonicalize", ms)
+            s.add_ms("canonicalize", ms, t0)
             s.nl_res = res
             s.confidence = res.confidence
             sig = res.signature
@@ -364,7 +375,7 @@ def _stage_validate(tenant: "Tenant", states: list[RequestState]) -> None:
             continue
         t0 = time.perf_counter()
         v = tenant.validator.validate(s.sig)
-        s.add_ms("validate", (time.perf_counter() - t0) * 1e3)
+        s.add_ms("validate", (time.perf_counter() - t0) * 1e3, t0)
         if v:
             s.provenance.append("validate:ok")
             continue
@@ -388,7 +399,7 @@ def _stage_gate(tenant: "Tenant", states: list[RequestState]) -> None:
         if s.origin == "nl":
             t0 = time.perf_counter()
             gate = gate_nl(tenant.policy, s.req.nl, s.nl_res, s.req.now)
-            s.add_ms("gate", (time.perf_counter() - t0) * 1e3)
+            s.add_ms("gate", (time.perf_counter() - t0) * 1e3, t0)
             if not gate:
                 tenant.stats.bump(nl_gated=1)
                 # the signature is schema-valid: the bypass still executes it,
@@ -428,7 +439,7 @@ def _stage_lookup(tenant: "Tenant", states: list[RequestState]) -> None:
             (s.sig, "nl" if s.origin == "nl" else "sql") for s in todo])
         ms = (time.perf_counter() - t0) * 1e3 / len(todo)
         for s, (lr, flight, leader) in zip(todo, triples):
-            s.add_ms("lookup", ms)
+            s.add_ms("lookup", ms, t0)
             _apply_lookup(tenant, s, lr)
             if s.pending:
                 s.flight, s.flight_leader = flight, leader
@@ -443,7 +454,7 @@ def _stage_lookup(tenant: "Tenant", states: list[RequestState]) -> None:
         t0 = time.perf_counter()
         lr: LookupResult = tenant.cache.lookup(
             s.sig, request_origin="nl" if s.origin == "nl" else "sql")
-        s.add_ms("lookup", (time.perf_counter() - t0) * 1e3)
+        s.add_ms("lookup", (time.perf_counter() - t0) * 1e3, t0)
         _apply_lookup(tenant, s, lr)
 
 
@@ -497,7 +508,7 @@ def _stage_plan_and_execute(tenant: "Tenant", states: list[RequestState]) -> Non
         # second SHA-256 — the one-hash-per-request invariant is
         # regression-tested via signature.key_hash_computations()
         misses.setdefault(s.sig.key(), []).append(s)
-        s.add_ms("plan", (time.perf_counter() - t0) * 1e3)
+        s.add_ms("plan", (time.perf_counter() - t0) * 1e3, t0)
 
     leaders = [group[0] for group in misses.values()]
     for group in misses.values():
@@ -599,7 +610,7 @@ def _stage_plan_and_execute(tenant: "Tenant", states: list[RequestState]) -> Non
                 else:
                     s.table = tenant.backend.execute(s.sig)
         except Exception as e:  # noqa: BLE001 — containment boundary
-            s.add_ms("execute", (time.perf_counter() - t0) * 1e3)
+            s.add_ms("execute", (time.perf_counter() - t0) * 1e3, t0)
             s.status = "error"
             s.table = None
             s.error = FailureInfo(stage="execute", kind=classify(e),
@@ -607,7 +618,7 @@ def _stage_plan_and_execute(tenant: "Tenant", states: list[RequestState]) -> Non
             s.provenance.append(f"failure:{s.error.brief()}")
             tenant.stats.bump(failures=1)
             continue
-        s.add_ms("execute", (time.perf_counter() - t0) * 1e3)
+        s.add_ms("execute", (time.perf_counter() - t0) * 1e3, t0)
         tenant.stats.bump(backend_executions=1)
         s.provenance.append(f"execute:bypass_{s.bypass_exec}")
 
@@ -628,7 +639,7 @@ def _execute_leader_group(tenant: "Tenant", group: list[RequestState]) -> None:
             s.batched = True
             # the scan is shared: each request is attributed the full batch
             # wall time under 'execute' (not a per-request cost)
-            s.add_ms("execute", batch_ms)
+            s.add_ms("execute", batch_ms, t0)
             s.provenance.append("execute:batched")
             if partitioned:
                 s.provenance.append("execute:partitioned")
@@ -637,7 +648,7 @@ def _execute_leader_group(tenant: "Tenant", group: list[RequestState]) -> None:
         t0 = time.perf_counter()
         with tenant.gate.read:
             s.table = tenant.backend.execute(s.sig)
-        s.add_ms("execute", (time.perf_counter() - t0) * 1e3)
+        s.add_ms("execute", (time.perf_counter() - t0) * 1e3, t0)
         s.provenance.append("execute:single")
         if partitioned:
             s.provenance.append("execute:partitioned")
@@ -682,18 +693,22 @@ def _execute_group_guarded(tenant: "Tenant",
     # live span on the first sampled leader's trace: it publishes itself as
     # this thread's current context, so the scan plane's partition spans and
     # any write-behind spill hang under it; attrs are finalized before exit
-    trace = next((s.trace for s in group if s.trace is not None), None)
+    sampled = next((s for s in group if s.trace is not None), None)
+    trace = None if sampled is None else sampled.trace
     eattrs: dict = {"leaders": len(group)}
     with span_ctx(trace, "execute.backend",
                   parent_id=trace.root_id if trace is not None else None,
-                  attrs=eattrs):
+                  attrs=eattrs) as backend_span:
         for attempt in range(attempts):
             try:
                 lat = faults.latency_s("backend.latency")
                 if lat:
                     time.sleep(lat)  # injected latency spike, not a failure
                 faults.fire("backend.error")
-                _execute_leader_group(tenant, group)
+                # the executor's phases of this attempt (obs.trace.phase)
+                with adopt_phases(Phases()) as phases:
+                    _execute_leader_group(tenant, group)
+                _record_phases(group, phases, sampled, backend_span)
                 err = None
                 break
             except Exception as e:  # noqa: BLE001 — containment boundary
@@ -747,6 +762,26 @@ def _execute_group_guarded(tenant: "Tenant",
     return False
 
 
+def _record_phases(group: list[RequestState], phases, sampled,
+                   backend_span) -> None:
+    """The executor's phase sums as ``execute.<phase>`` timings of every
+    request of the group (a shared scan's to each, as ``execute``), and as
+    child spans of ``execute.backend`` on the sampled leader's trace."""
+    sums = phases.sums()
+    for s in group:
+        for name, (ms, t0) in sums.items():
+            s.add_ms(name, ms, t0)
+    if sampled is None:
+        return
+    attrs = {k: phases.counts.get(k, 0) for k in ("signatures", "groups")}
+    for name, (ms, t0) in sums.items():
+        a = dict(attrs)
+        if name == "execute.fetch":
+            a["bytes"] = phases.counts.get("bytes", 0)
+        sampled.trace.record(name, parent_id=backend_span,
+                             start_s=sampled.wall_s(t0), dur_ms=ms, attrs=a)
+
+
 def _execute_shard_groups(tenant: "Tenant",
                           groups: list[list[RequestState]]) -> None:
     """Execute per-shard miss groups concurrently (the caller guarantees >= 2
@@ -778,7 +813,7 @@ def _resolve_follower(tenant: "Tenant", s: RequestState) -> None:
     timeout = getattr(tenant.cache, "flight_timeout", 30.0)
     t0 = time.perf_counter()
     ok = s.flight.wait(timeout)
-    s.add_ms("plan", (time.perf_counter() - t0) * 1e3)
+    s.add_ms("plan", (time.perf_counter() - t0) * 1e3, t0)
     s.deduped = True
     lctx = getattr(s.flight, "obs_ctx", None)
     if ok and lctx is not None:
@@ -825,11 +860,11 @@ def _store_state(tenant: "Tenant", s: RequestState) -> None:
                              cost_ms=s.timings.get("execute", 0.0))
     except Exception:  # noqa: BLE001 — a failed store must not fail the
         # request: the table is already in hand, the cache just stays cold
-        s.add_ms("store", (time.perf_counter() - t0) * 1e3)
+        s.add_ms("store", (time.perf_counter() - t0) * 1e3, t0)
         s.provenance.append("store:error")
         tenant.stats.bump(store_errors=1)
         return
-    s.add_ms("store", (time.perf_counter() - t0) * 1e3)
+    s.add_ms("store", (time.perf_counter() - t0) * 1e3, t0)
     s.stored = True
     tenant.stats.bump(stores=1)
     s.provenance.append("store")
@@ -872,10 +907,10 @@ def _emit_trace(s: RequestState) -> None:
     stages = set(s.timings) | set(by_stage)
     if s.error is not None and s.error.stage in STAGES:
         stages.add(s.error.stage)
-    # stages are laid out sequentially from the request's start: per-stage
-    # starts were never recorded (tracing adds no clock reads to stages),
-    # durations are the pipeline's own perf_counter timings
-    cursor = s.trace_wall0
+    # each stage at its first recorded start, lasting its summed timing; a
+    # stage with no start (a zero-duration marker, a failure that recorded
+    # no timing) at the end of the stage before it
+    cursor = s.trace_t0
     for stage in STAGES:
         if stage not in stages:
             continue
@@ -898,9 +933,10 @@ def _emit_trace(s: RequestState) -> None:
             for tok in events:
                 if tok.startswith("retry:"):
                     attrs.setdefault("retries", int(tok.split(":", 1)[1]))
-        tr.record(stage, parent_id=tr.root_id, start_s=cursor, dur_ms=dur,
-                  attrs=attrs)
-        cursor += dur / 1e3
+        t0 = s.starts.get(stage, cursor)
+        tr.record(stage, parent_id=tr.root_id, start_s=s.wall_s(t0),
+                  dur_ms=dur, attrs=attrs)
+        cursor = max(cursor, t0 + dur / 1e3)
     root_attrs: dict = {
         "status": s.status or "bypass",
         "origin": s.origin,
@@ -912,7 +948,7 @@ def _emit_trace(s: RequestState) -> None:
         root_attrs["key"] = s.sig.key()
     if events:
         root_attrs["events"] = events
-    tr.record("request", span_id=tr.root_id, start_s=s.trace_wall0,
+    tr.record("request", span_id=tr.root_id, start_s=s.wall_s(s.trace_t0),
               dur_ms=(time.perf_counter() - s.trace_t0) * 1e3,
               attrs=root_attrs)
 
