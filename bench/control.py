@@ -5,11 +5,12 @@ judged by the same comparison.  It has to come out not correct.
 
     python3 bench/control.py --workload <cell> --seeds 1 2 3 [--answers 100]
 
-For each seed it draws the cell's data and its window's events, takes the
-first ``--answers`` distinct intents, answers each with the float64
-reference and with the bfloat16 one (on the card where there is one), and
-prints the comparison's numbers beside the limits.  The benchmark's runs
-do not run it.
+For each seed it draws the cell's data (the configuration's ``generator``
+module) and its window's events, takes the first ``--answers`` distinct
+intents, answers each with the configuration's ``reference`` module in
+float64 and in bfloat16 (``answer(intent, control=True, device=...)``, on
+the card where there is one), and prints the comparison's numbers beside
+the limits.  The benchmark's runs do not run it.
 """
 from __future__ import annotations
 
@@ -24,12 +25,13 @@ sys.path[:0] = [str(BENCH), str(BENCH.parent / "src")]
 
 def control_numbers(name: str, seed: int, answers: int, device: str,
                     sizes: dict | None = None, seconds: float = 30.0) -> dict:
-    from yardstick import compare, harness, ssbgen, traffic
-    from yardstick.reference import Reference, gap
+    from yardstick import compare, harness, modules, traffic
+    from yardstick.reference import gap
 
     _, config, mix = harness.load_cell(name)
-    data = ssbgen.generate(int(config["scale_factor"]), seed, sizes=sizes)
-    ref = Reference(data)
+    data = modules.load(config["generator"]).generate(int(config["scale_factor"]), seed,
+                                                      sizes=sizes)
+    ref = modules.load(config["reference"]).Reference(data)
     intents = []
     for ev in traffic.Generator(mix, seed, "window").schedule(seconds):
         for r in ev.requests:

@@ -74,6 +74,35 @@ def test_configs(config):
     assert 1 <= len(config["source"]) <= 200
 
 
+@pytest.mark.parametrize("path", sorted((BENCH / "configs").glob("*.json")), ids=lambda p: p.stem)
+def test_the_modules_a_configuration_names_load(path):
+    """Every configuration file's ``generator`` and ``reference`` modules,
+    and where it has a canonicalizer its ``module`` and
+    ``model_reference``, exist under ``bench/`` and load with the
+    functions that the harness calls."""
+    from yardstick import modules
+
+    cfg = json.loads(path.read_text())
+    gen, ref = modules.load(cfg["generator"]), modules.load(cfg["reference"])
+    assert callable(gen.generate) and callable(gen.port_dataset) and callable(ref.Reference)
+    assert callable(ref.Reference.answer) and callable(ref.Reference.intent_of)
+    canon = cfg.get("canonicalizer")
+    if canon is not None:
+        mod = modules.load(canon["module"])
+        assert all(callable(getattr(mod, f)) for f in ("build", "replay", "judge", "plant"))
+        if "model_reference" in canon:
+            assert callable(modules.load(canon["model_reference"]).forward)
+
+
+def test_a_module_outside_the_benchmark_is_refused():
+    from yardstick import modules
+
+    for rel in ("../src/repro_torch/__init__.py", "yardstick/none.py", "configs/ssb-sf1.json"):
+        with pytest.raises(SystemExit):
+            modules.load(rel)
+    assert modules.load("yardstick/llm.py") is modules.load("yardstick/llm.py")
+
+
 def test_a_full_check_fits_its_time():
     runs = 2 + 14 * 24
     total = runs * (SPEC["run_seconds"] + 60) + 24 * 2 * 90 + 1200

@@ -89,3 +89,17 @@ def test_the_bfloat16_control_is_not_correct(data):
     limits = {"wrong_groups": 0, "widest_gap": 1e-4}
     assert not compare.judge(rows, limits)["correct"]
     assert compare.judge([("x", False, 0.0)], limits)["correct"]
+
+
+def test_control_py_fails_through_the_declared_modules(monkeypatch):
+    """``bench/control.py`` for the cell: its data and answers come from
+    the modules that the configuration names, and it is not correct."""
+    import control
+    from yardstick import modules
+
+    loaded = []
+    load = modules.load
+    monkeypatch.setattr(modules, "load", lambda rel: loaded.append(rel) or load(rel))
+    out = control.control_numbers("ssb-sf10.refresh", 2**32 + 9, 30, "cpu", sizes=SMALL)
+    assert out["correct"] is False and out["numbers"]["answers"]["value"] == 30
+    assert loaded == ["yardstick/ssbgen.py", "yardstick/reference.py"]

@@ -8,7 +8,16 @@ and calls it on CUDA.  The program under test is ``repro_torch``: its
 ``SemanticCache`` (a one-shard ``CacheCluster``: locked, with single-flight
 misses, because several callers submit at once), wired as
 ``repro_torch.launch.serve.build_tenant`` wires it.  The harness hands the
-service SQL text and nothing else.
+service SQL text, or in a mix of ``"form": "nl"`` natural-language text.
+
+What belongs to one configuration is found through its file: the data
+come from its ``generator`` module (``generate(scale_factor, seed,
+sizes)``, ``port_dataset(data)``), the answers from its ``reference``
+module (``Reference(data).answer(intent)``), and its optional
+``canonicalizer`` entry names the module that builds the tenant's NL
+canonicalizer and checks what the model produced (``build``, ``replay``,
+``judge``: ``bench/README.md``).  ``yardstick/modules.py`` loads them by
+their paths under ``bench/``.
 """
 from __future__ import annotations
 
@@ -27,9 +36,9 @@ from pathlib import Path
 
 import numpy as np
 
-from . import compare, devtrace, ssbgen, traffic
+from . import compare, devtrace, modules, traffic
 from .flights import Intent
-from .reference import Reference, gap, table_answer
+from .reference import gap, table_answer
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -59,6 +68,7 @@ class Served:
     timings: dict
     provenance: tuple
     deduped: bool
+    signature: object = None  # the intent signature the service executed
 
 
 @dataclasses.dataclass
@@ -73,6 +83,7 @@ class Run:
     cache_delta: dict  # CacheStats fields over the window
     trace: devtrace.Reduction | None = None
     shapes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    opened: float = 0.0  # the host clock (perf_counter) when the window opened
 
     def calls(self) -> dict[int, list[Served]]:
         """The requests of each ``submit_batch`` call."""
@@ -122,16 +133,17 @@ def metric_specs(cell: dict, trace: bool) -> list[dict]:
 
 # ------------------------------------------------------------ the program
 
-def build_service(data: ssbgen.SSBData, config: dict, device: str):
+def build_service(data, config: dict, device: str, nl=None):
     """The service under test over ``data``, wired as the port's
     ``launch.serve.build_tenant`` wires a tenant, with the configuration's
-    cache capacity, shards and executor settings."""
+    cache capacity, shards and executor settings and the NL canonicalizer
+    ``nl``."""
     from repro_torch.core.cache import SemanticCache
     from repro_torch.core.safety import SafetyPolicy
     from repro_torch.olap.executor import OlapExecutor
     from repro_torch.service import CacheService
 
-    ds = ssbgen.port_dataset(data)
+    ds = modules.load(config["generator"]).port_dataset(data)
     ex = config["executor"]
     backend = OlapExecutor(ds, device=device, memo_cap=int(ex["memo_cap"]),
                            partitions=int(ex["partitions"]))
@@ -139,19 +151,20 @@ def build_service(data: ssbgen.SSBData, config: dict, device: str):
                           level_mapper=ds.level_mapper())
     svc = CacheService()
     ambiguous = tuple((k, tuple(v)) for k, v in config["spatial_ambiguous"])
-    tenant = svc.register_tenant(TENANT, schema=ds.schema, backend=backend, cache=cache,
+    tenant = svc.register_tenant(TENANT, schema=ds.schema, backend=backend, cache=cache, nl=nl,
                                  policy=SafetyPolicy.balanced(ambiguous),
                                  shards=int(config["cache"]["shards"]))
     return svc, tenant
 
 
 def _requests(reqs, fresh: bool = False):
-    """The service's requests: SQL text, and with ``fresh`` the forced
+    """The service's requests: SQL or NL text, and with ``fresh`` the forced
     freshness of a scheduled refresh (the cache is not read; the result is
     stored anew)."""
     from repro_torch.service import QueryRequest
 
-    return [QueryRequest(sql=r.sql, tenant=TENANT, refresh=fresh) for r in reqs]
+    return [QueryRequest(sql=r.sql, tenant=TENANT, refresh=fresh) if r.nl is None
+            else QueryRequest(nl=r.nl, tenant=TENANT, refresh=fresh) for r in reqs]
 
 
 def _cache_stats(tenant) -> dict:
@@ -263,7 +276,7 @@ def _closed_loop(svc, events, seconds: float, clients: int, traced: bool, fresh:
 
 def _outcomes(i, ev, due, start, end, results) -> list[Served]:
     return [Served(i, req, due, start, end, r.status, r.table, dict(r.timings_ms),
-                   tuple(r.provenance), bool(r.deduped))
+                   tuple(r.provenance), bool(r.deduped), r.signature)
             for req, r in zip(ev.requests, results)]
 
 
@@ -278,8 +291,15 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
     traced, ``compared``).  ``t_start`` is the host clock when the process
     started (set-up is counted from it).  ``rate`` overrides an open-loop
     mix's rate (the knee's sweep), ``sizes`` the tables' rows (the tests),
-    ``fault`` plants one of ``compare.FAULTS`` under the service and
-    ``mix_overrides`` replaces parameters of the mix (the tests)."""
+    ``fault`` plants one of ``compare.FAULTS`` under the service, or one of
+    the canonicalizer module's ``FAULTS`` in the model, and
+    ``mix_overrides`` replaces parameters of the mix (the tests).
+
+    A configuration with a ``canonicalizer`` entry has its module build the
+    NL canonicalizer after the data (set-up), ``replay`` a sample of the
+    window's batches through it once the window has closed and before the
+    program is torn down, and ``judge`` those records after the teardown,
+    when the card is free for a reference."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     import torch
 
@@ -297,10 +317,19 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
         # compilation); its seconds are printed apart
         log(f"[setup] seg_agg {'built' if built else 'loaded, built before'} in "
             f"{phases['kernels'] - phases['start']:.3f} s")
-    data = ssbgen.generate(int(config["scale_factor"]), seed, sizes=sizes)
+    data = modules.load(config["generator"]).generate(int(config["scale_factor"]), seed,
+                                                      sizes=sizes)
     phases["data"] = time.perf_counter() - t_start
-    svc, tenant = build_service(data, config, device)
-    undo = compare.plant(fault, tenant.backend) if fault else None
+    canon = nl = None
+    if "canonicalizer" in config:
+        canon = modules.load(config["canonicalizer"]["module"])
+        nl = canon.build(config, data, seed, device)
+        phases["canonicalizer"] = time.perf_counter() - t_start
+    svc, tenant = build_service(data, config, device, nl)
+    undo = None
+    if fault:
+        undo = compare.plant(fault, tenant.backend) if canon is None or \
+            fault in compare.FAULTS else canon.plant(fault, nl)
 
     # set-up: every grouping the mix can ask for, each executed (forced
     # fresh, so that no derivation from another answers it), then the mix's
@@ -308,7 +337,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
     fresh = bool(mix.get("fresh"))
     warm = traffic.Generator(mix, seed, "warmup")
     for it in traffic.level_space(mix):
-        svc.submit_batch(_requests([warm._request(it, "setup")], fresh=True))
+        svc.submit_batch(_requests([warm._request(it, "setup", form="sql")], fresh=True))
     phases["groupings"] = time.perf_counter() - t_start
     stream = warm.warmup()
     step = int(mix.get("warmup_batch", 1))
@@ -320,8 +349,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
     phases["schedule"] = setup_s
-    rows = data.rows("lineorder")
-    log(f"[setup] {setup_s:.3f} s: {rows} rows, {len(events)} events "
+    rows = {t: data.rows(t) for t in data.tables}
+    log(f"[setup] {setup_s:.3f} s: rows {rows}, {len(events)} events "
         f"({sum(len(e.requests) for e in events)} requests) drawn; s since start at the end "
         f"of each phase: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
 
@@ -331,6 +360,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
         shapes = devtrace.LaunchShapes().__enter__()
         prof = devtrace.start(cuda)
     late: list[float] = []
+    opened = time.perf_counter()
     if mix["loop"] == "open":
         served, late = _open_loop(svc, events, int(mix["callers"]), seconds, trace, fresh, log)
         window_s = seconds
@@ -347,7 +377,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     run = Run(cell, config, mix, served, window_s,
               {k: stats1[k] - stats0[k] for k in stats0}, reduction,
-              shapes.counts if shapes else collections.Counter())
+              shapes.counts if shapes else collections.Counter(), opened)
 
     attempted = sum(len(e.requests) for e in (
         events if mix["loop"] == "open" else [events[i] for i in run.calls()]))
@@ -355,14 +385,17 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
     metrics = _metrics(run, setup_s, trace, log)
     _log_window(run, late, log)
 
-    # the program's state goes before the reference runs
+    # the model's outputs are taken from the program before it goes, and
+    # the program's state goes before a reference runs
+    records = canon.replay(nl, run, seed, log) if canon else None
     if undo:
         undo()
-    del svc, tenant
+    del svc, tenant, nl
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    checks, compared = check(run, data, seed, log)
+    model = canon.judge(records, config, seed, device) if canon else None
+    checks, compared = check(run, data, seed, log, model)
 
     out = {
         "correct": compared["correct"],
@@ -423,13 +456,7 @@ def read_metric(name: str, run: Run):
     """The per-layer metric ``name`` from its reader,
     ``bench/metrics/<name>.py`` (``read(run)``, None where it finds
     nothing)."""
-    import importlib.util
-
-    path = BENCH_DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(run)
+    return modules.load(f"metrics/{name}.py").read(run)
 
 
 def _log_window(run: Run, late: list[float], log) -> None:
@@ -469,12 +496,16 @@ def _log_window(run: Run, late: list[float], log) -> None:
 
 def sample(run: Run, seed: int) -> list[Served]:
     """The answers the comparison takes: per class (status, and for misses
-    the kernel the intent takes) up to the mix's ``check.per_class``, drawn
-    from the seed, and the answer with the most groups."""
+    the kernel the intent takes; ``compare.answer_class``) up to the mix's
+    ``check.per_class``, drawn from the seed, and the answer with the most
+    groups.  NL requests that the gate bypassed with no table
+    (``nl.gated``) have no answer to take."""
     per = int(run.mix["check"]["per_class"])
     classes: dict[str, list[Served]] = {}
     for s in run.served:
-        classes.setdefault(compare.answer_class(s), []).append(s)
+        k = compare.answer_class(s)
+        if k != "nl.gated":
+            classes.setdefault(k, []).append(s)
     rng = random.Random(f"{seed}|check")
     out = []
     for k in sorted(classes):
@@ -486,26 +517,56 @@ def sample(run: Run, seed: int) -> list[Served]:
     return out
 
 
-def check(run: Run, data: ssbgen.SSBData, seed: int, log) -> tuple[list, dict]:
-    """Every sampled answer against the plain reference."""
+def check(run: Run, data, seed: int, log, model: dict | None = None) -> tuple[list, dict]:
+    """Every sampled answer against the configuration's plain reference: a
+    SQL answer against its question's intent, an NL answer against the
+    signature that the service executed for it (the reference's
+    ``intent_of``), counting those that differ from the question's intent
+    (no limit) and those that the reference cannot express (not compared;
+    ``nl_unmapped``), and the window's NL requests gated with no table
+    (``nl_gated_share``).  ``model`` holds the canonicalizer module's
+    numbers, each with its limit."""
     t0 = time.perf_counter()
-    ref = Reference(data)
+    ref = modules.load(run.config["reference"]).Reference(data)
+    limit = run.config["limits"]["widest_gap"]
     answers: dict[Intent, dict] = {}
-    rows = []
-    for s in sample(run, seed):
-        it = s.req.intent
+
+    def answer(it: Intent) -> dict:
         if it not in answers:
             answers[it] = ref.answer(it)
+        return answers[it]
+
+    rows = []
+    nl = collections.Counter()
+    for s in sample(run, seed):
+        it = s.req.intent
+        if s.req.nl is not None:
+            it = ref.intent_of(s.signature) if s.signature is not None else None
+            if it is None:
+                nl["unmapped"] += 1
+                continue
+            asked = dataclasses.replace(s.req.intent, levels=tuple(sorted(s.req.intent.levels)))
+            d, w = gap(answer(it), answer(asked)) if asked.levels == it.levels else (True, 0.0)
+            nl["compared"] += 1
+            nl["not_the_question"] += int(d or w > limit)
         served = None if s.table is None else table_answer(s.table, it.levels)
-        differ, widest = gap(served, answers[it])
+        differ, widest = gap(served, answer(it))
         rows.append((compare.answer_class(s), differ, widest))
-        if differ or widest > run.config["limits"]["widest_gap"]:
-            _log_mismatch(s, served, answers[it], widest, log)
-    compared = compare.judge(rows, run.config["limits"])
+        if differ or widest > limit:
+            _log_mismatch(s, served, answer(it), widest, log)
+    asked = [s for s in run.served if s.req.nl is not None]
+    gated = sum(1 for s in asked if compare.answer_class(s) == "nl.gated")
+    compared = compare.judge(rows, run.config["limits"], model, {
+        "gated_share": gated / len(asked), "unmapped": nl["unmapped"]} if asked else None)
     by_class = collections.Counter(c for c, _, _ in rows)
     log(f"[compare] {len(rows)} answers against the reference in "
         f"{time.perf_counter() - t0:.3f} s ({len(answers)} distinct intents): "
         f"{dict(sorted(by_class.items()))}")
+    if asked:
+        log(f"[compare] NL: {gated} of {len(asked)} "
+            f"gated with no table (not compared); of the sample, {nl['compared']} compared on "
+            f"the executed signature, {nl['not_the_question']} of them not the question's "
+            f"intent, {nl['unmapped']} not expressible by the reference (not compared)")
     return rows, compared
 
 
@@ -514,7 +575,7 @@ def _log_mismatch(s: Served, served, ref: dict, widest: float, log) -> None:
     correct."""
     log(f"[mismatch] {compare.answer_class(s)} event {s.event} ({s.req.kind}, form "
         f"{s.req.form}) provenance {list(s.provenance)} intent {s.req.intent}")
-    log(f"[mismatch] sql {' '.join(s.req.sql.split())}")
+    log(f"[mismatch] {'nl' if s.req.nl else 'sql'} {' '.join((s.req.nl or s.req.sql).split())}")
     if served is None:
         log("[mismatch] no table in the served shape")
         return

@@ -11,6 +11,10 @@ level values as text, in the intent's level order) to its sum; an intent
 without levels has the one key ``()``, whose sum is 0 where no row
 qualifies.
 
+``intent_of`` maps a signature that the service executed back to the
+intent it asks (``signatures.py``), so that an NL answer is judged on what
+was executed.
+
 ``answer(..., control=True)`` is the control of the comparison that
 decides ``correct``: the same computation with the measure values and the
 sums in bfloat16, the precision below the float32 that the configuration
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import signatures
 from .flights import MEASURES, Intent, Pred
 from .ssbgen import SSBData
 
@@ -46,6 +51,12 @@ class Reference:
     def __init__(self, data: SSBData):
         self.data = data
         self.fact = data.tables[FACT]
+
+    def intent_of(self, signature) -> Intent | None:
+        """The intent that a signature the service executed (the port's
+        ``Signature``) asks of this data, or None where this reference
+        cannot answer it (``signatures.intent_of``)."""
+        return signatures.intent_of(signature, self.data)
 
     def _dim_rows(self, table: str, preds: list[Pred]) -> np.ndarray:
         """Rows of a dimension that pass every predicate on it."""

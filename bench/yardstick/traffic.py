@@ -3,10 +3,15 @@
 requests of the warm-up and of the measured window.
 
 A request is a structured intent with the SQL text of one of its 21
-surface forms (drawn uniformly).  An event is what one caller hands to
+surface forms (drawn uniformly), or in a mix of ``"form": "nl"`` with the
+natural-language text of one of ``nlforms``' phrasings instead (drawn
+uniformly from a stream of the seed's own: the mix draws every other
+number as its SQL form does, and asks the same intents at the same
+times).  An event is what one caller hands to
 ``CacheService.submit_batch`` at once: a dashboard's tiles, or one
 request.  Parameters:
 
+* ``form``: ``sql`` (the default) or ``nl``: what the requests carry;
 * ``loop``: ``open`` (events due at the times of a Poisson process of
   ``rate_per_s``, handed to ``callers`` threads) or ``closed``
   (``clients`` threads, each submitting its next event as soon as its
@@ -45,7 +50,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import flights, sqlforms
+from . import flights, nlforms, sqlforms
 from .flights import Intent
 
 TRAFFIC_DIR = Path(__file__).resolve().parents[1] / "traffic"
@@ -54,9 +59,10 @@ TRAFFIC_DIR = Path(__file__).resolve().parents[1] / "traffic"
 @dataclasses.dataclass(frozen=True)
 class Request:
     intent: Intent
-    form: int
-    sql: str
+    form: int  # of sqlforms, or of nlforms where ``nl`` is set
+    sql: str  # empty where ``nl`` is set
     kind: str  # the event kind that asked it
+    nl: str | None = None  # the question in natural language
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +82,10 @@ class Generator:
         independent streams of one seed."""
         self.p = params
         self.rng = random.Random(f"{seed}|{stream}")
+        self.form = params.get("form", "sql")
+        if self.form not in ("sql", "nl"):
+            raise ValueError(f"unknown form {self.form!r}: sql or nl")
+        self.nl_rng = random.Random(f"{seed}|{stream}|nl")
         n = int(params.get("dashboards", 0))
         boards = random.Random(f"{seed}|dashboards")
         self.boards = [self._board(boards) for _ in range(n)]
@@ -119,8 +129,14 @@ class Generator:
         i = int(np.searchsorted(self.cdf, self.rng.random(), side="right"))
         return self.boards[min(i, len(self.boards) - 1)]
 
-    def _request(self, it: Intent, kind: str) -> Request:
+    def _request(self, it: Intent, kind: str, form: str | None = None) -> Request:
+        """The request of ``it`` in the mix's form, or in ``form``.  An NL
+        request draws its SQL form too, unused, so that a mix asks the same
+        intents at the same times in either form."""
         f = self.rng.randrange(sqlforms.N_FORMS)
+        if (form or self.form) == "nl":
+            f = self.nl_rng.randrange(nlforms.N_FORMS)
+            return Request(it, f, "", kind, nlforms.render(it, f))
         return Request(it, f, sqlforms.render(it, f), kind)
 
     def event(self, due_s: float = 0.0) -> Event:
