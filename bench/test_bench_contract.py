@@ -79,7 +79,7 @@ def test_the_modules_a_configuration_names_load(path):
     """Every configuration file's ``generator`` and ``reference`` modules,
     and where it has a canonicalizer its ``module`` and
     ``model_reference``, exist under ``bench/`` and load with the
-    functions that the harness calls."""
+    functions that the harness and ``control.py`` call."""
     from yardstick import modules
 
     cfg = json.loads(path.read_text())
@@ -89,7 +89,8 @@ def test_the_modules_a_configuration_names_load(path):
     canon = cfg.get("canonicalizer")
     if canon is not None:
         mod = modules.load(canon["module"])
-        assert all(callable(getattr(mod, f)) for f in ("build", "replay", "judge", "plant"))
+        assert all(callable(getattr(mod, f))
+                   for f in ("build", "replay", "judge", "plant", "control"))
         if "model_reference" in canon:
             assert callable(modules.load(canon["model_reference"]).forward)
 

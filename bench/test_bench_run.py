@@ -49,6 +49,35 @@ def test_traced_run_reads_the_per_layer_metrics():
     assert out["device"]["window_s"] > 0 and "breakdown" in out
 
 
+def test_window_counters_are_the_kernels_launches_in_the_window(monkeypatch):
+    """``Run.counters`` of the refresh cell: only ``launch.<kernel>``, each
+    the launches between the window's two ends (set-up's and the
+    comparison's left out).  On the CPU no kernel launches, so each
+    aggregation the executor calls counts one here."""
+    from repro_torch.kernels import binding
+    from repro_torch.olap import executor as ex_mod
+
+    for name in ("seg_agg_fused", "seg_agg_masked", "seg_agg_batch_blocks"):
+        real = getattr(ex_mod, name)
+        monkeypatch.setattr(ex_mod, name, lambda *a, _n=name, _f=real, **k: (
+            binding.count_launch(f"bench_test.{_n}"), _f(*a, **k))[1])
+    runs, in_window = [], []
+    check, loop = harness.check, harness._closed_loop
+    monkeypatch.setattr(harness, "check", lambda run, *a: runs.append(run) or check(run, *a))
+
+    def counted_loop(*a, **k):
+        before = binding.launch_counts()
+        out = loop(*a, **k)
+        in_window.append(binding.launch_counts() - before)
+        return out
+
+    monkeypatch.setattr(harness, "_closed_loop", counted_loop)
+    assert rehearse("ssb-sf10.refresh")["correct"]
+    want = {f"launch.{k}": v for k, v in in_window[0].items()}
+    assert want and {k: v for k, v in runs[0].counters.items() if v} == want
+    assert all(k.startswith("launch.") for k in runs[0].counters)
+
+
 def test_open_loop_of_callers():
     """The open loop (Poisson arrivals handed to caller threads) that the
     left-out dashboard mix runs, driven here with the ad-hoc mix: every

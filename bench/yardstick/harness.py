@@ -84,6 +84,10 @@ class Run:
     trace: devtrace.Reduction | None = None
     shapes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     opened: float = 0.0  # the host clock (perf_counter) when the window opened
+    # the program's counters over the window (``window_counters``, read at
+    # its two ends): ``launch.<kernel>``, and ``nl.<name>`` of the
+    # canonicalizer module's ``counters`` where it has one
+    counters: dict = dataclasses.field(default_factory=dict)
 
     def calls(self) -> dict[int, list[Served]]:
         """The requests of each ``submit_batch`` call."""
@@ -170,6 +174,19 @@ def _requests(reqs, fresh: bool = False):
 def _cache_stats(tenant) -> dict:
     st = tenant.cache.stats
     return {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}
+
+
+def window_counters(canon, nl) -> dict:
+    """The program's counters as they stand: every kernel's launches
+    (``repro_torch.kernels.binding.launch_counts``, keyed
+    ``launch.<kernel>``) and, where the configuration's canonicalizer
+    module has ``counters(nl)``, its numbers (keyed ``nl.<name>``)."""
+    from repro_torch.kernels.binding import launch_counts
+
+    out = {f"launch.{k}": v for k, v in launch_counts().items()}
+    if canon is not None and hasattr(canon, "counters"):
+        out.update({f"nl.{k}": v for k, v in canon.counters(nl).items()})
+    return out
 
 
 @contextlib.contextmanager
@@ -299,7 +316,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
     NL canonicalizer after the data (set-up), ``replay`` a sample of the
     window's batches through it once the window has closed and before the
     program is torn down, and ``judge`` those records after the teardown,
-    when the card is free for a reference."""
+    when the card is free for a reference; its optional ``counters(nl)``
+    joins ``Run.counters``."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     import torch
 
@@ -355,6 +373,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
         f"of each phase: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
 
     stats0 = _cache_stats(tenant)
+    counters0 = window_counters(canon, nl)
     prof = shapes = None
     if trace:
         shapes = devtrace.LaunchShapes().__enter__()
@@ -374,10 +393,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str,
         reduction = devtrace.stop(prof, cuda)
         shapes.__exit__(None, None, None)
     stats1 = _cache_stats(tenant)
+    counters1 = window_counters(canon, nl)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     run = Run(cell, config, mix, served, window_s,
               {k: stats1[k] - stats0[k] for k in stats0}, reduction,
-              shapes.counts if shapes else collections.Counter(), opened)
+              shapes.counts if shapes else collections.Counter(), opened,
+              {k: counters1.get(k, 0) - counters0.get(k, 0)
+               for k in sorted(counters0.keys() | counters1.keys())})
 
     attempted = sum(len(e.requests) for e in (
         events if mix["loop"] == "open" else [events[i] for i in run.calls()]))
@@ -464,6 +486,7 @@ def _log_window(run: Run, late: list[float], log) -> None:
     lat = [(s.end - s.due) * 1e3 for s in run.served]
     log(f"[window] {run.window_s:.3f} s, {len(run.served)} requests in {len(run.calls())} "
         f"calls; statuses {dict(sorted(st.items()))}")
+    log(f"[window] counters {run.counters}")
     if lat:
         log(f"[window] latency ms p50 {_percentile(lat, 50):.4f} p95 {_percentile(lat, 95):.4f} "
             f"p99 {_percentile(lat, 99):.4f} max {max(lat):.4f}")

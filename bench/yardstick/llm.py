@@ -31,9 +31,16 @@ with ``limits.logit_gap`` in the configuration's ``limits``.
   |program - reference| over the compared positions and the whole head,
   over the largest |reference| there.  No record (nothing reached the
   model in the window) reads infinite.
+* ``control``: ``judge``'s numbers over the same batches twice, for the
+  program as ``build`` makes it and for the same program with its
+  weights rounded through FP8 (``weights_fp8``: e4m3, one scale per
+  tensor, the precision below the bfloat16 a configuration serves in):
+  the control, which has to fail.
+* ``counters``: the engine's own counters, which the harness reads at
+  the window's two ends (``Run.counters``, keyed ``nl.<name>``).
 
 The engine left-pads a batch and its attention sees the pads (ROADMAP
-Queue 3), so a batch of questions of different lengths departs from the
+Queue A), so a batch of questions of different lengths departs from the
 unpadded reference; ``logit_gap`` shows it and is not to be quieted.
 """
 from __future__ import annotations
@@ -50,9 +57,12 @@ from . import modules
 
 # faults that the tests plant in the program: the logits rounded to
 # bfloat16 where the model produces them; one weight of the output head
-# moved by 1e-2
-FAULTS = ("logits_bf16", "weight")
+# moved by 1e-2; every matrix of the weights rounded through FP8 (the
+# control's fault)
+FAULTS = ("logits_bf16", "weight", "weights_fp8")
 REPLAY_BATCHES = 4  # engine batches of the window that replay draws
+FP8_MAX = 448.0  # the largest finite float8_e4m3fn
+FP8_BLOCK = 1 << 26  # elements rounded at a time: bounds the float32 temporaries
 
 
 @dataclasses.dataclass
@@ -242,12 +252,91 @@ def judge(records: list[dict], config: dict, seed: int, device: str) -> dict:
     return {"logit_gap": {"value": worst / scale, "limit": limit}}
 
 
+def counters(nl) -> dict:
+    """The engine's counters: its own ``counters()`` where it has one,
+    else its decode ``steps`` and the seconds of host work (``host_s``)
+    and of model work (``model_s``) in its decode loop."""
+    engine = nl.bench_front.service.engine
+    if hasattr(engine, "counters"):
+        return dict(engine.counters())
+    return {"steps": engine.steps, "host_s": engine.host_s, "model_s": engine.model_s}
+
+
+def round_fp8(cfg, params, keep: bool = False) -> list:
+    """Every matrix leaf of ``params`` (the family's float32 leaves and
+    the vectors left as they are) rounded in place through
+    ``float8_e4m3fn`` and back to its dtype, with one scale per tensor,
+    amax / 448: the usual recipe of FP8 inference.  With ``keep``, returns
+    each rounded leaf with a copy of it from before, on the host (a second
+    copy on the card would not fit beside a large model)."""
+    import torch
+
+    f32 = cfg.build().FLOAT32_LEAVES
+    leaves = []
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+        elif isinstance(tree, list):
+            for v in tree:
+                walk(v, name)
+        elif tree.dim() >= 2 and name not in f32:
+            leaves.append(tree)
+
+    walk(params)
+    kept = []
+    with torch.no_grad():
+        for w in leaves:
+            if keep:
+                kept.append((w, w.to("cpu", copy=True)))
+            lo, hi = torch.aminmax(w)
+            amax = max(-float(lo), float(hi))
+            scale = amax / FP8_MAX if amax > 0 else 1.0
+            rows = max(1, FP8_BLOCK // max(1, w[0].numel()))
+            for part in w.split(rows):
+                q = (part.float() / scale).clamp_(-FP8_MAX, FP8_MAX).to(torch.float8_e4m3fn)
+                part.copy_(q.float() * scale)
+    return kept
+
+
+def control(config: dict, data, seed: int, device: str,
+            batches: list[list[str]]) -> tuple[dict, dict]:
+    """(``judge``'s numbers for the program, the same for its control):
+    ``batches`` (each one engine batch of questions) through the program
+    as ``build`` makes it, then through the same program with its weights
+    rounded through FP8; both judged once the program is gone, so that
+    the reference may use the card."""
+    import gc
+
+    import torch
+
+    nl = build(config, data, seed, device)
+    sound = capture(nl, batches)
+    engine = nl.bench_front.service.engine
+    round_fp8(engine.cfg, engine.params)
+    fp8 = capture(nl, batches)
+    del nl, engine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return judge(sound, config, seed, device), judge(fp8, config, seed, device)
+
+
 def plant(fault: str, nl):
     """One of ``FAULTS`` in the canonicalizer's model; returns the function
     that undoes it."""
     import torch
 
     engine = nl.bench_front.service.engine
+    if fault == "weights_fp8":
+        kept = round_fp8(engine.cfg, engine.params, keep=True)
+
+        def undo():
+            with torch.no_grad():
+                for w, before in kept:
+                    w.copy_(before)
+        return undo
     if fault == "logits_bf16":
         real = engine.mod
 
